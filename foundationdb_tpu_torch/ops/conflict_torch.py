@@ -1,0 +1,703 @@
+"""The resolver's conflict-detection core on PyTorch and the H100.
+
+Port of foundationdb_tpu/ops/conflict_jax.py (the lanes path; the
+endpoint dictionary comes later).  Same semantics slab for slab, so the
+verdicts AND the ring state are bit-identical to the JAX reference and
+to the numpy twin (ops/conflict_np.py):
+
+- **Canonical oldest-first ring.**  History is ``hb/he: [L, C]`` lane
+  planes plus ``hver: [C]`` slot versions; appending a batch's slab of S
+  records shifts the ring left by S and writes the slab at the tail.
+  Evicted slots raise the too-old ``floor`` to their max version.
+- **Lanes are int32.**  PyTorch has no unsigned compare or shift for
+  uint32, so a lane holds the reference's u32 value XOR 0x80000000
+  (``map_lanes``): that keeps the order, so signed ``<`` here is the
+  reference's unsigned ``<``.  The sentinel 0xFFFFFFFF maps to
+  0x7FFFFFFF and the truncation marker ``width+1`` maps the same way.
+  Versions and the floor stay int64.
+- **Hot/cold fused groups.**  ``resolve_many_core`` runs K batches per
+  dispatch against a small hot staging buffer seeded with the ring's
+  newest ``window`` slots and appends the real slabs to the cold ring
+  once at the end.  The reference's ``lax.scan`` is a Python loop over
+  the K batches on one CUDA stream: every offset, pad flag and real
+  batch count comes from host data (the commit versions), so the loop
+  slices at host-known offsets and never syncs the card.
+- **The window/full-ring choice stays on the device.**  Where the
+  reference runs ``lax.cond(fast_ok, window, full)``, the history-check
+  kernel takes ``fast_ok`` as a device predicate: the window check is
+  launched with (fast_ok, 1) and the full check with (fast_ok, 0) into
+  the same hit vector, and the side not taken exits at once.
+- **Hand kernels** (ops/kernels.py): the history check, the in-order
+  commit chain, and the ring append behind RESOLVER_RING_INPLACE (into
+  a spare plane of a ping-pong pair).  The intra-batch overlap matrix,
+  slab build and verdict bit-pack are torch ops.
+
+Every handle a submit returns supports ``np.asarray``: the device→host
+copy starts at dispatch into pinned memory and ``__array__`` waits on
+its CUDA event.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import kernels, keycode
+from .batch import COMMITTED, CONFLICT, TOO_OLD, EncodedBatch
+from .kernels import SENTINEL_MAPPED, hist_check, mapped, point_pair_rule
+from .keycode import DEFAULT_WIDTH
+
+SENTINEL_LANE = 0xFFFFFFFF
+_SIGN = np.uint32(0x80000000)
+_INT64_MIN = -(1 << 63)
+
+
+def map_lanes(a: np.ndarray) -> np.ndarray:
+    """u32 lanes -> the order-preserving int32 lanes the port computes on."""
+    return (np.asarray(a, dtype=np.uint32) ^ _SIGN).view(np.int32)
+
+
+def unmap_lanes(a: np.ndarray) -> np.ndarray:
+    """int32 lanes -> the reference's u32 lanes."""
+    return np.asarray(a, dtype=np.int32).view(np.uint32) ^ _SIGN
+
+
+def default_device(device=None) -> torch.device:
+    """``None`` means the CUDA card.  Without one, raise: the CPU runs
+    only when the caller asks for ``torch.device("cpu")``."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device; pass device=torch.device('cpu') to run "
+                "the plain versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class ConflictState(NamedTuple):
+    """Device-resident conflict history, canonical oldest-first ring."""
+    hb: torch.Tensor     # [L, C] int32 mapped — range begin lanes
+    he: torch.Tensor     # [L, C] int32 mapped — range end lanes
+    hver: torch.Tensor   # [C] int64 — slot versions, -1 = never written
+    floor: torch.Tensor  # [] int64 — too-old boundary
+
+
+def init_state(capacity: int, width: int = DEFAULT_WIDTH,
+               oldest_version: int = 0,
+               device: torch.device | None = None) -> ConflictState:
+    L = keycode.nlanes(width)
+    return ConflictState(
+        hb=torch.full((L, capacity), SENTINEL_MAPPED, dtype=torch.int32,
+                      device=device),
+        he=torch.full((L, capacity), SENTINEL_MAPPED, dtype=torch.int32,
+                      device=device),
+        hver=torch.full((capacity,), -1, dtype=torch.int64, device=device),
+        floor=torch.tensor(oldest_version, dtype=torch.int64, device=device),
+    )
+
+
+def state_from_numpy(hb: np.ndarray, he: np.ndarray, hver: np.ndarray,
+                     floor, device) -> ConflictState:
+    """The reference's ConflictState as numpy ([L, C] u32 planes, [C]
+    int64 versions, scalar floor) -> the port's mapped state on
+    ``device``."""
+    dev = torch.device(device)
+    return ConflictState(
+        hb=torch.from_numpy(map_lanes(hb).copy()).to(dev),
+        he=torch.from_numpy(map_lanes(he).copy()).to(dev),
+        hver=torch.from_numpy(np.asarray(hver, np.int64).copy()).to(dev),
+        floor=torch.tensor(int(floor), dtype=torch.int64, device=dev))
+
+
+def state_to_numpy(state: ConflictState):
+    """-> (hb u32 [L, C], he u32 [L, C], hver int64 [C], floor int), the
+    reference's layout and dtypes."""
+    return (unmap_lanes(state.hb.cpu().numpy()),
+            unmap_lanes(state.he.cpu().numpy()),
+            state.hver.cpu().numpy().copy(), int(state.floor))
+
+
+# --------------------------------------------------------------------------
+# comparison primitives (torch ops on mapped lanes)
+
+
+def _lex_lt(a, b):
+    """Strict lex < over the trailing lane axis -> (lt, eq)."""
+    L = a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    lt = torch.zeros(shape, dtype=torch.bool, device=a.device)
+    eq = torch.ones_like(lt)
+    for l in range(L):
+        al, bl = a[..., l], b[..., l]
+        lt = lt | (eq & (al < bl))
+        eq = eq & (al == bl)
+    return lt, eq
+
+
+def _possibly_lt(a, b, width):
+    lt, eq = _lex_lt(a, b)
+    w1 = mapped(width + 1)
+    both_trunc = (a[..., -1] == w1) & (b[..., -1] == w1)
+    return lt | (eq & both_trunc)
+
+
+def _overlap(ab, ae, bb, be, width):
+    return _possibly_lt(ab, be, width) & _possibly_lt(bb, ae, width)
+
+
+def _point_intra(read_begin, write_begin, width):
+    """All-point intra-batch matrix: reads of i vs writes of j -> [B,B]."""
+    B = read_begin.shape[0]
+    L = read_begin.shape[-1]
+    eq = torch.ones(read_begin.shape[:2] + write_begin.shape[:2],
+                    dtype=torch.bool, device=read_begin.device)
+    for l in range(L - 1):
+        eq = eq & (read_begin[:, :, None, None, l]
+                   == write_begin[None, None, :, :, l])
+    m = point_pair_rule(eq, read_begin[:, :, None, None, -1],
+                        write_begin[None, None, :, :, -1], width)
+    eye = torch.eye(B, dtype=torch.bool, device=read_begin.device)
+    return m.any(dim=3).any(dim=1) & ~eye
+
+
+def _low32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> the int32 with the same low bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _pack_bits32(m: torch.Tensor) -> torch.Tensor:
+    """[K, n] bool -> [K, ceil(n/32)] int32; bit b of word w = m[:, w*32+b]
+    (the words are built in int64: torch has no uint32 shift)."""
+    K, n = m.shape
+    nw = (n + 31) // 32
+    mp = torch.zeros((K, nw * 32), dtype=torch.int64, device=m.device)
+    mp[:, :n] = m
+    shifts = torch.arange(32, dtype=torch.int64, device=m.device)
+    return _low32((mp.view(K, nw, 32) << shifts).sum(dim=-1))
+
+
+# --------------------------------------------------------------------------
+# single-batch core
+
+
+def _batch_verdicts(read_begin, read_end, write_begin, write_end,
+                    hist_conflict, too_old, valid, B: int, width: int,
+                    points: bool = False):
+    """Intra-batch read-vs-write overlap matrix + the in-order commit
+    chain (kernel K1).  Returns (verdicts [B] int8, committed [B] bool)."""
+    if points:
+        M = _point_intra(read_begin, write_begin, width)
+    else:
+        m = _overlap(read_begin[:, :, None, None, :],
+                     read_end[:, :, None, None, :],
+                     write_begin[None, None, :, :, :],
+                     write_end[None, None, :, :, :], width)
+        eye = torch.eye(B, dtype=torch.bool, device=read_begin.device)
+        M = m.any(dim=3).any(dim=1) & ~eye
+    packed = _pack_bits32(M)                                  # [B, nw]
+    ok = valid & ~too_old
+    flags = torch.stack([hist_conflict, ok], dim=1).to(torch.int32)
+    conf = kernels.commit_chain(packed, flags) != 0
+    committed = ok & ~conf
+    verdicts = torch.where(
+        ~valid, COMMITTED,
+        torch.where(too_old, TOO_OLD,
+                    torch.where(conf, CONFLICT, COMMITTED))).to(torch.int8)
+    return verdicts, committed
+
+
+def _slab_from_writes(write_begin, write_end, committed, S_: int, L: int):
+    """[L, S_] lane slabs holding committed writes; sentinel elsewhere."""
+    valid_w = write_begin[..., -1] != SENTINEL_MAPPED              # [B,R]
+    ins = (committed[:, None] & valid_w).reshape(S_, 1)
+    slab_b = torch.where(ins, write_begin.reshape(S_, L), SENTINEL_MAPPED)
+    slab_e = torch.where(ins, write_end.reshape(S_, L), SENTINEL_MAPPED)
+    return slab_b.T.contiguous(), slab_e.T.contiguous()
+
+
+def _append(plane, slab, ring_inplace: bool, spares, idx: int):
+    """[plane[:, S:] | slab].  With ``ring_inplace`` kernel K2 writes it
+    into the spare plane ``spares[idx]`` and the old plane becomes the
+    spare, so the previous state's planes are recycled."""
+    if not ring_inplace:
+        return torch.cat([plane[:, slab.shape[1]:], slab], dim=1)
+    out = spares[idx] if spares is not None else None
+    if out is None or out.shape != plane.shape or out.device != plane.device:
+        out = torch.empty_like(plane)
+    kernels.ring_append(plane, slab, out)
+    if spares is not None:
+        spares[idx] = plane
+    return out
+
+
+def resolve_core(state: ConflictState, read_begin, read_end, write_begin,
+                 write_end, snap, commit_version: int, *,
+                 width: int = DEFAULT_WIDTH, window: int = 0,
+                 points: bool = False, ring_inplace: bool = False,
+                 spares: list | None = None):
+    """One resolve step: (state, batch) -> (state', verdicts [B] int8).
+
+    ``commit_version < 0`` marks a padding batch: verdicts are computed
+    but the ring is left untouched.  ``window`` > 0 enables the exact
+    fast path (only the newest ``window`` slots can hold a conflict
+    unless a snapshot predates the slot just outside the window), chosen
+    on the device by kernel K3's predicate."""
+    C = state.hver.shape[0]
+    B, R, L = read_begin.shape
+    S_ = B * R
+    if S_ > C:
+        raise ValueError(f"slab {S_} exceeds ring capacity {C}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+    too_old = snap < state.floor
+    valid = snap >= 0
+
+    # 1. reads vs the device history ring -> [B]
+    hit = torch.zeros(B, dtype=torch.int32, device=snap.device)
+    if window and window < C:
+        v_edge = state.hver[C - window - 1]
+        fast_ok = (~valid | too_old | (snap >= v_edge)).all() \
+            .to(torch.int32).reshape(1)
+        hist_check(read_begin, read_end, state.hb[:, C - window:],
+              state.he[:, C - window:], state.hver[C - window:], snap,
+              width, points, hit, fast_ok, 1)
+        hist_check(read_begin, read_end, state.hb, state.he, state.hver, snap,
+              width, points, hit, fast_ok, 0)
+    else:
+        hist_check(read_begin, read_end, state.hb, state.he, state.hver, snap,
+              width, points, hit)
+
+    # 2-3. intra-batch overlap + in-order commit chain
+    verdicts, committed = _batch_verdicts(
+        read_begin, read_end, write_begin, write_end, hit != 0, too_old,
+        valid, B, width, points)
+    if commit_version < 0:
+        return state, verdicts
+
+    # 4. append the batch's slab; evicting the S_ oldest slots raises
+    # the too-old floor to their max version
+    slab_b, slab_e = _slab_from_writes(write_begin, write_end, committed,
+                                       S_, L)
+    hb2 = _append(state.hb, slab_b, ring_inplace, spares, 0)
+    he2 = _append(state.he, slab_e, ring_inplace, spares, 1)
+    slab_v = torch.full((S_,), commit_version, dtype=torch.int64,
+                        device=state.hver.device)
+    hv2 = torch.cat([state.hver[S_:], slab_v])
+    floor2 = torch.maximum(state.floor, state.hver[:S_].max())
+    return ConflictState(hb2, he2, hv2, floor2), verdicts
+
+
+def resolve_many_core(state: ConflictState, read_begin, read_end,
+                      write_begin, write_end, snap,
+                      commit_versions: list[int], *,
+                      width: int = DEFAULT_WIDTH, window: int = 0,
+                      points: bool = False, ring_inplace: bool = False,
+                      spares: list | None = None):
+    """K fused batches: inputs [K,B,R,L] / [K,B] on the device, commit
+    versions on the host (< 0 marks a trailing padding batch).
+
+    Identical to K chained single-batch steps, including at eviction
+    edges: batch k's too-old floor is the start floor maxed with every
+    cold slot its predecessors' appends evicted (one strided slice +
+    cummax, since slots are appended in version order).  Padding
+    batches write sentinel slabs into the hot buffer but are dropped at
+    the final append, so the cold ring advances by exactly the real
+    slabs."""
+    K, B, R, L = read_begin.shape
+    S_ = B * R
+    T = K * S_
+    C = state.hver.shape[0]
+    if window <= 0 or window >= C or T > C:
+        # compat path (tiny rings / windowless): chain the single core
+        out = []
+        for k in range(K):
+            state, v = resolve_core(
+                state, read_begin[k], read_end[k], write_begin[k],
+                write_end[k], snap[k], commit_versions[k], width=width,
+                window=window, points=points, ring_inplace=ring_inplace,
+                spares=spares)
+            out.append(v)
+        return state, torch.stack(out)
+
+    W = window
+    dev = state.hver.device
+    start_floor = state.floor
+    if K > 1:
+        edges = torch.cummax(state.hver[S_ - 1:T - 1:S_], dim=0).values
+    else:
+        edges = torch.zeros((0,), dtype=torch.int64, device=dev)
+    floors = torch.maximum(start_floor, torch.cat(
+        [torch.full((1,), _INT64_MIN, dtype=torch.int64, device=dev),
+         edges]))
+    # hot staging buffer: [edge slot | cold's W newest | K slabs]
+    fill = torch.full((L, T), SENTINEL_MAPPED, dtype=torch.int32, device=dev)
+    hotb = torch.cat([state.hb[:, C - W - 1:], fill], dim=1)
+    hote = torch.cat([state.he[:, C - W - 1:], fill], dim=1)
+    hotv = torch.cat([state.hver[C - W - 1:],
+                      torch.full((T,), -1, dtype=torch.int64, device=dev)])
+    lastv = state.hver[C - 1]
+    verdicts = []
+    for k in range(K):
+        rb, re, wb, we, sn = (read_begin[k], read_end[k], write_begin[k],
+                              write_end[k], snap[k])
+        off = k * S_
+        too_old = sn < floors[k]
+        valid = sn >= 0
+        # batch k's window = hot[1+off : 1+off+W]; its edge = hot[off]
+        fast_ok = (~valid | too_old | (sn >= hotv[off])).all() \
+            .to(torch.int32).reshape(1)
+        hit = torch.zeros(B, dtype=torch.int32, device=dev)
+        win = slice(off + 1, off + 1 + W)
+        hist_check(rb, re, hotb[:, win], hote[:, win], hotv[win], sn, width,
+              points, hit, fast_ok, 1)
+        # full: the cold ring + the whole hot buffer (rows not yet written
+        # hold sentinel intervals, which overlap nothing)
+        hist_check(rb, re, state.hb, state.he, state.hver, sn, width, points,
+              hit, fast_ok, 0)
+        hist_check(rb, re, hotb, hote, hotv, sn, width, points, hit, fast_ok, 0)
+        v, committed = _batch_verdicts(rb, re, wb, we, hit != 0, too_old,
+                                       valid, B, width, points)
+        verdicts.append(v)
+        if commit_versions[k] >= 0:
+            lastv = commit_versions[k]
+        slab_b, slab_e = _slab_from_writes(wb, we, committed, S_, L)
+        dst = slice(off + 1 + W, off + 1 + W + S_)
+        hotb[:, dst] = slab_b
+        hote[:, dst] = slab_e
+        # pad slabs carry the last real version: version density keeps
+        # the window edge test sound
+        hotv[dst] = lastv
+
+    # bulk append of the REAL slabs only (real batches precede pads)
+    n_real = sum(1 for cv in commit_versions if cv >= 0)
+    shift = n_real * S_
+    hot_sb = hotb[:, 1 + W:]
+    hot_se = hote[:, 1 + W:]
+    if ring_inplace and n_real == K:
+        hb2 = _append(state.hb, hot_sb, True, spares, 0)
+        he2 = _append(state.he, hot_se, True, spares, 1)
+    else:
+        # a partially padded group: the host-side dynamic slice
+        hb2 = torch.cat([state.hb[:, shift:], hot_sb[:, :shift]], dim=1)
+        he2 = torch.cat([state.he[:, shift:], hot_se[:, :shift]], dim=1)
+    hv2 = torch.cat([state.hver[shift:], hotv[1 + W:1 + W + shift]])
+    # evicted = the n_real*S_ oldest cold slots
+    evict_mask = torch.arange(T, device=dev) < shift
+    floor2 = torch.maximum(start_floor, torch.where(
+        evict_mask, state.hver[:T], -1).max())
+    return ConflictState(hb2, he2, hv2, floor2), torch.stack(verdicts)
+
+
+def resolve_many_packed(state: ConflictState, lanes, snaps,
+                        commit_versions: list[int], *, shape,
+                        width: int = DEFAULT_WIDTH, window: int = 0,
+                        points: bool = False, ring_inplace: bool = False,
+                        spares: list | None = None):
+    """resolve_many_core on one lane buffer: ``lanes`` [4*K*B*R*L] int32
+    = rb | re | wb | we (mapped), ``snaps`` [K*B] int64."""
+    K, B, R, L = shape
+    n = K * B * R * L
+    rb = lanes[0:n].view(K, B, R, L)
+    re = lanes[n:2 * n].view(K, B, R, L)
+    wb = lanes[2 * n:3 * n].view(K, B, R, L)
+    we = lanes[3 * n:4 * n].view(K, B, R, L)
+    return resolve_many_core(state, rb, re, wb, we, snaps.view(K, B),
+                             commit_versions, width=width, window=window,
+                             points=points, ring_inplace=ring_inplace,
+                             spares=spares)
+
+
+def set_oldest_step(state: ConflictState, v: int) -> ConflictState:
+    """setOldestVersion analog: only the too-old floor moves (a device op
+    on the same stream, no sync)."""
+    return state._replace(floor=state.floor.clamp(min=v))
+
+
+# --------------------------------------------------------------------------
+# verdict readback
+
+
+class _Readback:
+    """A device→host copy started at dispatch.  On a CUDA tensor it goes
+    into pinned memory behind a CUDA event, which ``np.asarray`` (the
+    backend's sync, on its worker thread) waits on."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor) -> None:
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+            self.event = None
+
+    def __array__(self, dtype=None, copy=None):
+        if self.event is not None:
+            self.event.synchronize()
+        a = self.host.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def pack_verdicts_step(verdicts: torch.Tensor, *, K: int, B: int):
+    """[K, B] int8 verdicts -> (summary [ceil(K/32)] int32 with bit k set
+    iff batch k holds any non-COMMITTED verdict, planes [2*K*nw] int32 =
+    the abort plane (verdict != COMMITTED) then the TOO_OLD plane)."""
+    nonc = verdicts != COMMITTED
+    told = verdicts == TOO_OLD
+    planes = torch.cat([_pack_bits32(nonc).reshape(-1),
+                        _pack_bits32(told).reshape(-1)])
+    summary = _pack_bits32(nonc.any(dim=1)[None, :]).reshape(-1)
+    return summary, planes
+
+
+class PackedVerdicts:
+    """Handle on a device-reduced verdict transfer (pack_verdicts_step).
+
+    ``np.asarray`` syncs the summary word(s), returns all-COMMITTED when
+    no bit is set, and only then reads and unpacks the bit planes.
+    ``synced_bytes`` records what the sync read: the summary always, the
+    planes only when read."""
+
+    __slots__ = ("summary", "planes", "K", "B", "synced_bytes")
+
+    def __init__(self, summary: _Readback, planes: _Readback, K: int, B: int):
+        self.summary = summary
+        self.planes = planes
+        self.K = K
+        self.B = B
+        self.synced_bytes = 0
+
+    @staticmethod
+    def unpack(summary: np.ndarray, planes: np.ndarray,
+               K: int, B: int) -> np.ndarray:
+        nw = (B + 31) // 32
+        shifts = np.arange(32, dtype=np.uint32)
+
+        def bits(words):
+            m = ((words[:, :, None] >> shifts) & np.uint32(1))
+            return m.reshape(K, nw * 32)[:, :B].astype(np.int8)
+
+        conf = bits(planes[:K * nw].reshape(K, nw))
+        told = bits(planes[K * nw:].reshape(K, nw))
+        return conf + told
+
+    def to_numpy(self) -> np.ndarray:
+        s = np.asarray(self.summary).view(np.uint32)
+        self.synced_bytes = s.nbytes
+        if not s.any():
+            return np.zeros((self.K, self.B), np.int8)
+        p = np.asarray(self.planes).view(np.uint32)
+        self.synced_bytes += p.nbytes
+        return self.unpack(s, p, self.K, self.B)
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.to_numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+# group sizes for resolve_many; a group of k batches is padded up to the
+# next bucket with padding batches (commit_version=-1, sentinel slabs)
+GROUP_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+# dictionary update buckets, kept beside GROUP_BUCKETS for the
+# dictionary path of the next slice
+UPD_BUCKETS = (1024, 4096, 16384, 32768)
+FUSED_UPD_BUCKETS = (0, 256, 1024, 4096, 16384, 32768)
+
+
+def _np_point_end(x: np.ndarray, width: int) -> np.ndarray:
+    """Lane rows of k+'\\0' derived from k's (u32 host lanes)."""
+    ll = x[..., -1]
+    sent = ll == np.uint32(0xFFFFFFFF)
+    newll = np.where(sent, ll, np.minimum(ll + 1, np.uint32(width + 1)))
+    return np.concatenate([x[..., :-1], newll[..., None]], axis=-1)
+
+
+def _eb_is_point(eb: EncodedBatch, width: int) -> bool:
+    """True iff every range in the batch is a point [k, k+nul) — the
+    gate for the equality-rule history check."""
+    return bool(
+        np.array_equal(eb.read_end, _np_point_end(eb.read_begin, width))
+        and np.array_equal(eb.write_end, _np_point_end(eb.write_begin, width)))
+
+
+_FIELDS = ("read_begin", "read_end", "write_begin", "write_end")
+
+
+class TorchConflictSet:
+    """Drop-in peer of NumpyConflictSet backed by the hand kernels.
+
+    Keeps state on ``device`` (the CUDA card unless the caller passes
+    ``torch.device("cpu")``, where the kernels' plain versions run).  The
+    ring is allocated on the first batch, when the slab size B*R is
+    known; ``capacity`` is rounded up to a whole number of slabs."""
+
+    def __init__(self, capacity: int, width: int = DEFAULT_WIDTH,
+                 oldest_version: int = 0, device=None, window: int = 4096,
+                 ring_inplace: bool = False, pack_verdicts: bool = False):
+        self.device = default_device(device)
+        self.capacity = capacity
+        self.width = width
+        self.window = window
+        self.ring_inplace = ring_inplace
+        self.pack = pack_verdicts
+        self.state: ConflictState | None = None
+        self._init_floor = oldest_version
+        self._slab: int | None = None
+        self._spares: list = [None, None]   # ping-pong planes (hb, he)
+        # True while every record in the ring is a point range: gates the
+        # equality-rule check; a range-bearing dispatch clears it until
+        # the next ring reset
+        self._ring_all_point = True
+
+    def _set_slab(self, slab: int) -> None:
+        self._slab = slab
+        if not (0 < self.window < self.capacity):
+            self.window = 0
+
+    def _ensure_state(self, B: int, R: int) -> None:
+        if self.state is not None:
+            if self._slab is None:
+                if self.capacity % (B * R):
+                    raise ValueError(f"carried ring of {self.capacity} "
+                                     f"slots is not whole slabs of {B * R}")
+                self._set_slab(B * R)
+            elif self._slab != B * R:
+                raise ValueError(
+                    f"batch shape changed: slab {B * R} != {self._slab}")
+            return
+        slab = B * R
+        self.capacity = ((self.capacity + slab - 1) // slab) * slab
+        self._set_slab(slab)
+        self.state = init_state(self.capacity, self.width, self._init_floor,
+                                self.device)
+
+    def load_state(self, hb: np.ndarray, he: np.ndarray, hver: np.ndarray,
+                   floor, ring_all_point: bool = False) -> None:
+        """Install a carried ring (the reference's numpy layout, see
+        state_from_numpy).  ``ring_all_point`` may stay False: the
+        interval check is exact on any ring."""
+        self.state = state_from_numpy(hb, he, hver, floor, self.device)
+        self.capacity = int(np.asarray(hver).shape[0])
+        self._slab = None
+        self._spares = [None, None]
+        self._ring_all_point = ring_all_point
+
+    def reset_ring(self, oldest_version: int = 0) -> None:
+        """Clear the conflict history ring."""
+        if self.state is None:
+            self._init_floor = oldest_version
+            return
+        self.state = init_state(self.capacity, self.width, oldest_version,
+                                self.device)
+        self._spares = [None, None]
+        self._ring_all_point = True
+
+    def set_oldest_version(self, v: int) -> None:
+        if self.state is None:
+            self._init_floor = max(self._init_floor, v)
+        else:
+            self.state = set_oldest_step(self.state, v)
+
+    @property
+    def oldest_version(self) -> int:
+        if self.state is None:
+            return self._init_floor
+        return int(self.state.floor)
+
+    def _host(self, n: int, dtype: torch.dtype) -> torch.Tensor:
+        return torch.empty(n, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _upload(self, ebs: list[EncodedBatch], K: int):
+        """The group's lanes (mapped) and snapshots in two host buffers,
+        pinned for a CUDA device, copied without blocking the host."""
+        B, R, L = ebs[0].read_begin.shape
+        n = K * B * R * L
+        kn = len(ebs) * B * R * L
+        lanes = self._host(4 * n, torch.int32)
+        u = lanes.numpy().view(np.uint32)
+        u[:] = SENTINEL_LANE
+        for f, field in enumerate(_FIELDS):
+            dst = u[f * n:f * n + kn].reshape(len(ebs), B, R, L)
+            for i, e in enumerate(ebs):
+                dst[i] = getattr(e, field)
+        u ^= _SIGN
+        snaps = self._host(K * B, torch.int64)
+        s = snaps.numpy()
+        s[:] = -1
+        for i, e in enumerate(ebs):
+            s[i * B:(i + 1) * B] = e.read_snapshot
+        nb = self.device.type == "cuda"
+        return (lanes.to(self.device, non_blocking=nb),
+                snaps.to(self.device, non_blocking=nb))
+
+    def _finish_submit(self, verdicts: torch.Tensor, K: int, B: int):
+        """Group-dispatch epilogue: under RESOLVER_VERDICT_BITMASK the
+        [K, B] verdicts are reduced on the device to the summary+planes
+        pair and only those read back; the copies start now either way."""
+        if self.pack:
+            summary, planes = pack_verdicts_step(verdicts, K=K, B=B)
+            return PackedVerdicts(_Readback(summary), _Readback(planes), K, B)
+        return _Readback(verdicts)
+
+    def resolve_encoded_submit(self, eb: EncodedBatch,
+                               commit_version: int) -> _Readback:
+        """Dispatch one resolve and return the (not yet synced) verdict
+        handle; ``self.state`` is already the post-batch state."""
+        B, R, L = eb.read_begin.shape
+        self._ensure_state(B, R)
+        use_points = self._ring_all_point = \
+            self._ring_all_point and _eb_is_point(eb, self.width)
+        lanes, snaps = self._upload([eb], 1)
+        n = B * R * L
+        self.state, verdicts = resolve_core(
+            self.state, lanes[0:n].view(B, R, L), lanes[n:2 * n].view(B, R, L),
+            lanes[2 * n:3 * n].view(B, R, L), lanes[3 * n:].view(B, R, L),
+            snaps, commit_version, width=self.width, window=self.window,
+            points=use_points, ring_inplace=self.ring_inplace,
+            spares=self._spares)
+        return _Readback(verdicts)
+
+    def resolve_group_submit(self, ebs: list[EncodedBatch],
+                             commit_versions: list[int],
+                             k_pad: int | None = None):
+        """Fuse a group of batches into one dispatch; returns the
+        (unsynced) [K, B] verdict handle, rows past len(ebs) padding.
+        ``k_pad`` overrides the bucket."""
+        if len(ebs) != len(commit_versions) or not ebs:
+            raise ValueError("one commit version per batch, at least one")
+        B, R, L = ebs[0].read_begin.shape
+        self._ensure_state(B, R)
+        k = len(ebs)
+        if k_pad is not None and k_pad >= k:
+            K = k_pad
+        else:
+            K = next(b for b in GROUP_BUCKETS if b >= k) \
+                if k <= GROUP_BUCKETS[-1] \
+                else ((k + GROUP_BUCKETS[-1] - 1) // GROUP_BUCKETS[-1]) \
+                * GROUP_BUCKETS[-1]
+        use_points = self._ring_all_point = self._ring_all_point \
+            and all(_eb_is_point(e, self.width) for e in ebs)
+        lanes, snaps = self._upload(ebs, K)
+        cvs = list(commit_versions) + [-1] * (K - k)
+        self.state, verdicts = resolve_many_packed(
+            self.state, lanes, snaps, cvs, shape=(K, B, R, L),
+            width=self.width, window=self.window, points=use_points,
+            ring_inplace=self.ring_inplace, spares=self._spares)
+        return self._finish_submit(verdicts, K, B)
+
+    def apply_dict_updates(self, upd_slots, upd_lanes, n_upd: int) -> None:
+        """No-op: this set ships lanes (no endpoint dictionary yet)."""
+
+    def resolve_encoded(self, eb: EncodedBatch,
+                        commit_version: int) -> np.ndarray:
+        return np.asarray(self.resolve_encoded_submit(eb, commit_version))
