@@ -11,7 +11,11 @@ path on the card and exits non-zero on any failure:
    parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the same
    seeded inputs at the resolver's shapes, tolerance 0 (integers), and
-   times both with CUDA events;
+   times both with CUDA events: K1 (a batch's whole verdict step) at
+   B = 64 and 100 under both rules, writing into a hot-buffer view; K2
+   on the hot-buffer view; K3 under both rules on the resolver's own
+   cold ring + hot buffer, with the inputs deciding the window (fast_ok)
+   and the full side, and on a lone ring;
 4. the port's Resolver at the reference's device operating point
    (B=64, R=8, 32-byte keys, ring 1<<17, window 8192, group bucket 8,
    pipeline and verdict bitmask on) answers 2048 concurrently submitted
@@ -25,7 +29,8 @@ path on the card and exits non-zero on any failure:
 6. RESOLVER_RING_INPLACE=True on the mako stream: verdicts and ring
    state identical to phase 4;
 7. one JSON line with each kernel's launches in phase 6's run, max
-   error, times and bound; the last line is the result.
+   error, times and bound (K1 also its latency bound: B chain steps at
+   the step time measured in phase 3); the last line is the result.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -100,20 +105,110 @@ def _rand_keys(g, n: int, maxlen: int, alphabet: int = 3) -> list[bytes]:
     return [body[i, :lens[i]].tobytes() for i in range(n)]
 
 
-def _ranges(g, kc, n: int, points: bool):
+def _ranges(g, kc, n: int, points: bool, wide: float = 0.1,
+            alphabet: int = 3):
     """n encoded ranges [n, L] (begin, end), u32, of random keys (some
     longer than WIDTH, so the truncation rules are exercised): points,
-    or intervals of which 90% are narrow [k, k+"\\x01") and 10% wide."""
-    a = _rand_keys(g, n, WIDTH + 8)
+    or intervals of which a share ``wide`` spans between two random keys
+    and the rest are narrow [k, k+"\\x01")."""
+    a = _rand_keys(g, n, WIDTH + 8, alphabet)
     if points:
         b = [k + b"\x00" for k in a]
     else:
-        c = _rand_keys(g, n, WIDTH + 8)
-        wide = g.random(n) < 0.1
+        c = _rand_keys(g, n, WIDTH + 8, alphabet)
+        wide = g.random(n) < wide
         b = [max(x, y) + b"\x00" if w else x + b"\x01"
              for x, y, w in zip(a, c, wide)]
         a = [min(x, y) if w else x for x, y, w in zip(a, c, wide)]
     return kc.encode_keys(a, WIDTH), kc.encode_keys(b, WIDTH)
+
+
+def _lanes_needed(a, b, L):
+    """For row pairs a, b [..., L] (int32 mapped lanes): the lanes a
+    lexicographic compare reads (up to and including the first unequal
+    one, all L when equal) and whether a < b there."""
+    import torch
+    a, b = torch.broadcast_tensors(a, b)
+    ne = a != b
+    first = torch.where(ne.any(-1), ne.to(torch.int8).argmax(-1),
+                        torch.full(ne.shape[:-1], L - 1, device=a.device))
+    lt = torch.gather(a, -1, first[..., None])[..., 0] < \
+        torch.gather(b, -1, first[..., None])[..., 0]
+    return first + 1, lt & ne.any(-1)
+
+
+def _live(rows, points: bool):
+    """[B, R] bool: rows up to each txn's last live one (the rule of
+    csrc/lanes.cuh: a point row is dead with a sentinel length lane, an
+    interval row with an all-sentinel begin)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops.kernels import SENTINEL_MAPPED
+    dead = rows[..., -1] == SENTINEL_MAPPED if points \
+        else (rows == SENTINEL_MAPPED).all(-1)
+    R = rows.shape[1]
+    idx = torch.arange(1, R + 1, device=rows.device)
+    n = torch.where(~dead, idx, 0).max(dim=1).values
+    return idx[None, :] <= n[:, None]
+
+
+def k1_ops(rb, re, wb, we, hit, snap, floor, points: bool) -> int:
+    """Lane compares the K1 step needs on these inputs: pairs of a live
+    read of txn i and a live write of txn j < i, i able to commit and
+    not already hit, j able to commit, at the lanes each compare reads
+    (both halves of the interval rule where the first holds)."""
+    import torch
+    ok = (snap >= 0) & (snap >= floor)
+    row = ok & (hit == 0)
+    B, R, L = rb.shape
+    lower = torch.ones((B, B), dtype=torch.bool, device=rb.device).tril(-1)
+    need = (row[:, None] & ok[None, :] & lower)[:, None, :, None] \
+        & _live(rb, points)[:, :, None, None] \
+        & _live(wb, points)[None, None, :, :]
+    a, b = rb[:, :, None, None, :], wb[None, None, :, :, :]
+    if points:
+        lanes, _ = _lanes_needed(a[..., :-1], b[..., :-1], L - 1)
+        lanes = lanes + (a[..., :-1] == b[..., :-1]).all(-1).to(lanes.dtype)
+    else:
+        l1, lt1 = _lanes_needed(a, we[None, None, :, :, :], L)
+        l2, _ = _lanes_needed(b, re[:, :, None, None, :], L)
+        lanes = l1 + lt1.to(l1.dtype) * l2
+    return int((lanes * need).sum())
+
+
+def _history(g, kc, dev, points: bool, C: int, W: int, S: int, Kg: int,
+             k: int):
+    """The resolver's own layout: a cold ring of C slots (versions rising
+    through [0, 10000), the oldest sixteenth never written) and the hot
+    buffer of a group of Kg batches of S slots [edge | cold's W newest |
+    Kg slabs] with batches 0..k-1 written at versions 10001.. and the
+    rest sentinel, as resolve_many_core builds it.  Returns device
+    segments (hb, he, hver): cold, hot, batch k's window, and its edge."""
+    import torch
+
+    from foundationdb_tpu_torch.ops.conflict_torch import map_lanes
+    cb, ce = _ranges(g, kc, C, points, 0.0, 6)
+    cv = np.sort(g.integers(0, 10_000, size=C))
+    cv[:C // 16] = -1
+    T = Kg * S
+    tb, te = _ranges(g, kc, T, points, 0.0, 6)
+    tb[k * S:] = 0xFFFFFFFF
+    te[k * S:] = 0xFFFFFFFF
+    tv = np.repeat(np.arange(10_001, 10_001 + Kg), S).astype(np.int64)
+    tv[k * S:] = -1
+    hot = (np.concatenate([cb[C - W - 1:], tb]),
+           np.concatenate([ce[C - W - 1:], te]),
+           np.concatenate([cv[C - W - 1:], tv]))
+
+    def seg(b, e, v):
+        return (torch.from_numpy(map_lanes(b.T.copy())).to(dev),
+                torch.from_numpy(map_lanes(e.T.copy())).to(dev),
+                torch.from_numpy(v).to(dev))
+
+    cold, hot = seg(cb, ce, cv), seg(*hot)
+    off = k * S
+    win = tuple(x[..., off + 1:off + 1 + W] for x in hot)
+    return cold, hot, win, hot[2][off:off + 1]
 
 
 def kernel_phase(dev, report: dict) -> None:
@@ -125,53 +220,124 @@ def kernel_phase(dev, report: dict) -> None:
 
     g = np.random.default_rng(1234)
     L = kc.nlanes(WIDTH)
+    C, W = 1 << 17, 8192
+    S = B * R
 
-    def note(name, err, ms, plain_ms, bound_ms, bound_by, lib_ms=None,
-             line=False):
+    def note(name, err, ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+             lib_ms=None, **extra):
         r = report.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if line:
+        if ms is not None:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=lib_ms)
+                     bound_by=bound_by, library_ms=lib_ms, **extra)
 
-    # K1: the commit chain at B = 64 (the main path) and B = 100
-    for Bk in (64, 100):
-        nw = (Bk + 31) // 32
-        bits = g.random((Bk, nw * 32)) < 0.05
-        bits[:, Bk:] = False
-        words = (bits.reshape(Bk, nw, 32).astype(np.uint64)
-                 << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
-        packed = torch.from_numpy(words.view(np.int32)).to(dev)
-        flags = torch.from_numpy(
-            (g.random((Bk, 2)) < [0.1, 0.9]).astype(np.int32)).to(dev)
-        got = K.commit_chain(packed, flags)
-        want = K.commit_chain_plain(packed, flags)
-        err = int((got - want).abs().max())
-        ms, call = time_cuda(lambda: K.commit_chain(packed, flags))
-        pms, _ = time_cuda(lambda: K.commit_chain_plain(packed, flags),
-                           reps=2, rounds=3)
-        nbytes = 4 * (Bk * nw + 2 * Bk + Bk)
-        ops = Bk * (2 * nw + 4)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        say(f"kernel commit_chain B={Bk}: max_abs_err={err} ms={ms:.6f} "
-            f"call_ms={call:.6f} plain_ms={pms:.6f} bound_ms={bound:.8f} "
-            f"(operations; the real limit is {Bk} dependent steps)")
-        note("commit_chain", err, ms, pms, bound, "operations", None,
-             line=Bk == B)
+    def bound(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+    def rows(n, points, wide=0.1, alphabet=3):
+        rb_, re_ = _ranges(g, kc, n * R, points, wide, alphabet)
+        rb_, re_ = rb_.reshape(n, R, L), re_.reshape(n, R, L)
+        pad = g.random((n, R)) < 0.5        # sentinel rows
+        rb_[pad] = 0xFFFFFFFF
+        re_[pad] = 0xFFFFFFFF
+        return [torch.from_numpy(map_lanes(x)).to(dev) for x in (rb_, re_)]
+
+    def one(v):
+        return torch.tensor([v], dtype=torch.int64, device=dev)
+
+    # K1: the batch's verdict step at B = 64 (the main path) and B = 100,
+    # both rules, writing its slab into a hot-buffer view
+    floor = one(100)
+    for points in (True, False):
+        for Bk in (64, 100):
+            Sk = Bk * R
+            rb, re = rows(Bk, points)
+            wb, we = rows(Bk, points)
+            hit = torch.from_numpy((g.random(Bk) < 0.1).astype(np.int32)) \
+                .to(dev)
+            kind = g.random(Bk)
+            snap = torch.from_numpy(np.where(kind < 0.1, -1, np.where(
+                kind < 0.2, 50, 200)).astype(np.int64)).to(dev)
+            hot = torch.full((L, 1 + W + 8 * Sk), 7, dtype=torch.int32,
+                             device=dev)
+            hoe = hot.clone()
+            hv = torch.full((1 + W + 8 * Sk,), 7, dtype=torch.int64,
+                            device=dev)
+            dst = slice(1 + W + 3 * Sk, 1 + W + 4 * Sk)
+            ver = one(12345)
+            args = (rb, re, wb, we, hit, snap, floor, WIDTH, points)
+            verd = torch.empty(Bk, dtype=torch.int8, device=dev)
+            comm = torch.empty(Bk, dtype=torch.bool, device=dev)
+            slab = (hot[:, dst], hoe[:, dst], hv[dst])
+
+            def k1():
+                K.commit_chain(*args, verd, comm, slab=slab, version_t=ver)
+
+            k1()
+            v, c, sb, se = K.commit_chain_plain(*args)
+            outside = torch.ones(hot.shape[1], dtype=torch.bool, device=dev)
+            outside[dst] = False
+            errs = [(verd.long() - v.long()).abs().max(),
+                    (comm.long() - c.long()).abs().max(),
+                    (hot[:, dst].long() - sb.long()).abs().max(),
+                    (hoe[:, dst].long() - se.long()).abs().max(),
+                    (hv[dst] - 12345).abs().max(),
+                    (hot[:, outside] != 7).sum() + (hv[outside] != 7).sum()]
+            err = int(max(int(e) for e in errs))
+            ms, call = time_cuda(k1)
+            pms, _ = time_cuda(lambda: K.commit_chain_plain(*args),
+                               reps=2, rounds=3)
+            k = 2 if points else 3          # row planes the kernel reads
+            nbytes = 4 * k * Bk * R * L + 12 * Bk + 2 * Bk + \
+                2 * 4 * L * Sk + 8 * Sk + 16
+            ops = k1_ops(rb, re, wb, we, hit, snap, floor, points)
+            bms, by = bound(nbytes, ops)
+            verdict_counts = torch.bincount(verd.long(), minlength=3).tolist()
+            say(f"kernel commit_chain B={Bk} points={points}: max_abs_err="
+                f"{err} verdicts(committed, conflict, too_old)="
+                f"{verdict_counts} ms={ms:.6f} call_ms={call:.6f} "
+                f"plain_ms={pms:.6f} bound_ms={bms:.8f} ({by}; {nbytes} "
+                f"bytes, {ops} lane compares)")
+            if err:
+                say(f"kernel commit_chain MISMATCH B={Bk} points={points}")
+            note("commit_chain", err)
+            if Bk == B and points:
+                line_k1 = (ms, pms, bms, by)
+    # K1's real limit: B dependent chain steps.  One step's time, measured:
+    # every txn invalid (no matrix work, no slab), one range a txn, B = 32
+    # against B = 96 (the prologue and epilogue are one pass of 512
+    # threads either way)
+    t_b = {}
+    for Bk in (32, 96):
+        rb, re = (x[:, :1].contiguous() for x in rows(Bk, True))
+        sn = torch.full((Bk,), -1, dtype=torch.int64, device=dev)
+        h = torch.zeros(Bk, dtype=torch.int32, device=dev)
+        verd = torch.empty(Bk, dtype=torch.int8, device=dev)
+        comm = torch.empty(Bk, dtype=torch.bool, device=dev)
+        t_b[Bk], _ = time_cuda(lambda: K.commit_chain(
+            rb, re, rb, re, h, sn, floor, WIDTH, True, verd, comm))
+    step_ms = (t_b[96] - t_b[32]) / (96 - 32)
+    lat_ms = B * step_ms
+    say(f"kernel commit_chain chain step: {step_ms * 1e6:.3f} ns "
+        f"(B=32 {t_b[32]:.6f} ms, B=96 {t_b[96]:.6f} ms, all invalid); "
+        f"latency bound at B={B}: {lat_ms:.8f} ms")
+    ms, pms, bms, by = line_k1
+    note("commit_chain", 0, ms, pms, bms, by, None,
+         latency_bound_ms=lat_ms, chain_step_ms=step_ms)
 
     # K2: the ring append at L = 9, C = 1 << 17, on the resolver's own
     # slab layout: the K slabs of a fused group, a view into the hot
     # staging buffer [L, 1 + W + K*B*R] from column 1 + W (not 16-byte
     # aligned, odd row stride).  The mako run fuses groups of
     # RESOLVER_GROUP_MAX = 64 batches, so S = 64*B*R is its shape.
-    C, W = 1 << 17, 8192
     buf = torch.from_numpy(g.integers(-2**31, 2**31, size=(L, C),
                                       dtype=np.int64).astype(np.int32)).to(dev)
     out = torch.empty_like(buf)
     out2 = torch.empty_like(buf)
     for Kg in (1, 8, 64):
-        S = Kg * B * R
-        hot = torch.from_numpy(g.integers(-2**31, 2**31, size=(L, 1 + W + S),
+        Sg = Kg * S
+        hot = torch.from_numpy(g.integers(-2**31, 2**31, size=(L, 1 + W + Sg),
                                           dtype=np.int64).astype(np.int32)
                                ).to(dev)
         slab = hot[:, 1 + W:]
@@ -180,69 +346,71 @@ def kernel_phase(dev, report: dict) -> None:
         err = int((out.to(torch.int64) - out2.to(torch.int64)).abs().max())
         ms, call = time_cuda(lambda: K.ring_append(buf, slab, out))
         pms, _ = time_cuda(lambda: K.ring_append_plain(buf, slab, out2))
-        lib, _ = time_cuda(lambda: torch.cat([buf[:, S:], slab], dim=1))
-        bound = 2 * L * C * 4 / HBM_BYTES_PER_S * 1e3
-        say(f"kernel ring_append L={L} C={C} S={S} (hot-buffer view, row "
+        lib, _ = time_cuda(lambda: torch.cat([buf[:, Sg:], slab], dim=1))
+        bms = 2 * L * C * 4 / HBM_BYTES_PER_S * 1e3
+        say(f"kernel ring_append L={L} C={C} S={Sg} (hot-buffer view, row "
             f"stride {slab.stride(0)}): max_abs_err={err} "
             f"ms={ms:.6f} call_ms={call:.6f} plain_ms={pms:.6f} "
             f"torch.cat_ms={lib:.6f} "
-            f"bound_ms={bound:.6f} (bytes)")
-        note("ring_append", err, ms, pms, bound, "bytes", lib,
-             line=Kg == 64)
+            f"bound_ms={bms:.6f} (bytes)")
+        note("ring_append", err)
+        if Kg == 64:
+            note("ring_append", err, ms, pms, bms, "bytes", lib)
 
-    # K3: the history check, both rules x both predicate values, at the
-    # 8192-slot window and the full 1 << 17 ring
+    # K3: the history check on the path's own layout (cold ring 1 << 17,
+    # the hot buffer of a group of 8, batch 4's window of 8192 slots),
+    # both rules, with fast_ok decided true (the window) and false (the
+    # cold ring + the hot buffer) by the snapshots
+    floor = one(200)
     for points in (True, False):
-        for N in (8192, 1 << 17):
-            hb, he = _ranges(g, kc, N, points)
-            rb, re = _ranges(g, kc, B * R, points)
-            rb = rb.reshape(B, R, L)
-            re = re.reshape(B, R, L)
-            pad = g.random((B, R)) < 0.5        # sentinel read rows
-            rb[pad] = 0xFFFFFFFF
-            re[pad] = 0xFFFFFFFF
-            hv = np.sort(g.integers(0, 10_000, size=N))
-            hv[:N // 16] = -1
-            sn = g.integers(0, 10_000, size=B)
-            sn[g.random(B) < 0.6] = 9_995       # few newer slots: misses
+        cold, hot, win, edge = _history(g, kc, dev, points, C, W, S, 8, 4)
+        rb, re = rows(B, points, 0.01, 6)
+        e = int(edge)
+        top = int(hot[2].max())
+        for fast in (True, False):
+            sn = np.where(g.random(B) < 0.6, top - 2,
+                          g.integers(e, top + 1, size=B)).astype(np.int64)
             sn[g.random(B) < 0.1] = -1
-            t = [torch.from_numpy(x).to(dev) for x in (
-                map_lanes(rb), map_lanes(re), map_lanes(hb.T.copy()),
-                map_lanes(he.T.copy()), hv, sn)]
-            newer = int((t[4][None, :] > t[5][:, None]).sum())
-            for pv in (1, 0):
-                pred = torch.tensor([pv], dtype=torch.int32, device=dev)
-                for ex in (1, 0):
-                    hit = torch.zeros(B, dtype=torch.int32, device=dev)
-                    K.hist_check(*t, WIDTH, points, hit, pred, ex)
-                    want = K.hist_check_plain(*t, WIDTH, points) \
-                        .to(torch.int32) * int(pv == ex)
-                    err = int((hit - want).abs().max())
-                    note("hist_check", err, 0, 0, 0, "")
-                    if err:
-                        say(f"kernel hist_check MISMATCH points={points} "
-                            f"N={N} pred={pv} expected={ex}")
+            sn[:2] = 150                 # too old
+            if not fast:
+                sn[2] = 5_000            # valid, below the edge
+            sn = torch.from_numpy(sn).to(dev)
+            args = (rb, re, sn, WIDTH, points)
+            kw = dict(window=win, edge=edge, floor=floor)
             hit = torch.zeros(B, dtype=torch.int32, device=dev)
-            on = torch.tensor([1], dtype=torch.int32, device=dev)
+            K.hist_check(*args, hit, [cold, hot], **kw)
+            want = K.hist_check_select_plain(*args, [cold, hot], **kw)
+            err = int((hit - want.to(torch.int32)).abs().max())
+            ok = bool(K.fast_path_ok(sn, edge, floor))
+            if ok != fast:
+                fail(f"hist_check inputs: fast_ok={ok}, meant {fast}")
             ms, call = time_cuda(
-                lambda: K.hist_check(*t, WIDTH, points, hit, on, 1))
-            skip_ms, _ = time_cuda(
-                lambda: K.hist_check(*t, WIDTH, points, hit, on, 0))
-            pms, _ = time_cuda(lambda: K.hist_check_plain(*t, WIDTH, points),
-                               reps=2, rounds=3)
+                lambda: K.hist_check(*args, hit, [cold, hot], **kw))
+            pms, _ = time_cuda(lambda: K.hist_check_select_plain(
+                *args, [cold, hot], **kw), reps=2, rounds=3)
+            side = [win] if fast else [cold, hot]
             k = 1 if points else 2
-            nbytes = 4 * k * (B * R * L + L * N) + 8 * N + 8 * B + 4 * B
-            ops = B * N + R * newer
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-            by = "bytes" if nbytes / HBM_BYTES_PER_S > ops / INT32_OPS_PER_S \
-                else "operations"
-            say(f"kernel hist_check points={points} N={N}: hits="
-                f"{int(K.hist_check_plain(*t, WIDTH, points).sum())}/{B} "
-                f"ms={ms:.6f} call_ms={call:.6f} skipped_ms={skip_ms:.6f} "
-                f"plain_ms={pms:.6f} "
-                f"bound_ms={bound:.8f} ({by})")
-            note("hist_check", 0, ms, pms, bound, by, None,
-                 line=points and N == 8192)
+            slots = sum(s[2].shape[0] for s in side)
+            newer = sum((s[2][None, :] > sn[:, None]).sum(1) for s in side)
+            live = _live(rb, points).sum(1)
+            ops = int((live * newer).sum())
+            nbytes = slots * (8 + 4 * k * L) + 4 * k * B * R * L + 12 * B + 16
+            bms, by = bound(nbytes, ops)
+            say(f"kernel hist_check points={points} "
+                f"{'window' if fast else 'full'} ({slots} slots): "
+                f"max_abs_err={err} hits={int(hit.sum())}/{B} ms={ms:.6f} "
+                f"call_ms={call:.6f} plain_ms={pms:.6f} bound_ms={bms:.8f} "
+                f"({by}; {nbytes} bytes, {ops} lane compares)")
+            if err:
+                say(f"kernel hist_check MISMATCH points={points} fast={fast}")
+            note("hist_check", err)
+            if points and fast:
+                note("hist_check", err, ms, pms, bms, by, None)
+        # one segment, no window (resolve_core without a window)
+        hit = torch.zeros(B, dtype=torch.int32, device=dev)
+        K.hist_check(rb, re, sn, WIDTH, points, hit, [cold])
+        want = K.hist_check_plain(rb, re, *cold, sn, WIDTH, points)
+        note("hist_check", int((hit - want.to(torch.int32)).abs().max()))
     torch.cuda.synchronize()
 
 
@@ -442,6 +610,9 @@ def main() -> None:
         fail("RESOLVER_RING_INPLACE changed verdicts or ring state")
     if min(got7.values()) == 0:
         fail(f"the ring-inplace mako run did not launch every kernel: {got7}")
+    for got in (got4, got5, got6, got7):
+        if got["hist_check"] != got["commit_chain"]:
+            fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
     # 7. the kernels line, then the result.  Its launches are those of the
     # mako run with RESOLVER_RING_INPLACE (phase 6), the one run that
@@ -461,7 +632,9 @@ def main() -> None:
                      "replaces": repl, "launches": got7[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                     **{k: r[k] for k in ("latency_bound_ms", "chain_step_ms")
+                        if k in r}})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

@@ -9,8 +9,20 @@ mako batches, all submitted concurrently:
 1. plain: wall time, txns/s and the device pipeline's own counters;
 2. under ``torch.profiler``: device time by kernel name, the device's
    busy time (the union of its kernel intervals) and idle share of the
-   wall time;
-3. under ``cProfile``: the host functions with the most own time.
+   wall time, and device kernels per batch;
+3. under ``cProfile``: the host functions with the most own time, and
+   ``resolve_many_core``'s cumulative host time per batch;
+
+then drives the conflict set's fused group dispatch directly
+(``resolve_many_packed`` on lanes already on the card):
+
+4. the device kernels the fused loop issues per batch: the profiler's
+   count for a group of 16 batches less that for a group of 8, over 8
+   (what a group costs once cancels), by kernel name;
+5. host µs per batch in ``resolve_many_core``: 4 groups of 64 batches
+   (the pipeline's group size) enqueued back to back, timed on the host
+   clock, then one sync (few enough that the card keeps up and the
+   launch queue never fills).
 
 Prints one line per finding and a JSON summary last.  Needs a CUDA card.
 """
@@ -57,6 +69,74 @@ def run(batches, versions):
     return asyncio.run(main())
 
 
+def _device_events(prof):
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def fused_loop(batches, versions) -> dict:
+    """Steps 4 and 5 on a fresh TorchConflictSet at the operating point."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops.batch import encode_batch
+    from ..ops.conflict_torch import TorchConflictSet, resolve_many_packed
+
+    kn = knobs()
+    B, R, W = (kn.RESOLVER_BATCH_TXNS, kn.RESOLVER_RANGES_PER_TXN,
+               kn.KEY_ENCODE_BYTES)
+    cs = TorchConflictSet(kn.CONFLICT_RING_CAPACITY, W,
+                          window=kn.CONFLICT_WINDOW_SLOTS)
+    ebs = [encode_batch(t, B, R, W) for t in batches]
+    pos = 0
+
+    def group(k):
+        """The next k batches, uploaded: (lanes, snaps, versions)."""
+        nonlocal pos
+        e, v = ebs[pos:pos + k], versions[pos:pos + k]
+        pos += k
+        cs._ensure_state(B, R)
+        lanes, snaps = cs._upload(e, k)
+        return lanes, snaps, v
+
+    def run(g):
+        lanes, snaps, v = g
+        cs.state, verdicts = resolve_many_packed(
+            cs.state, lanes, snaps, v, shape=(len(v), B, R, W // 4 + 1),
+            width=W, window=cs.window, points=True)
+        return verdicts
+
+    for _ in range(4):                                  # warm-up
+        run(group(8))
+    torch.cuda.synchronize()
+    counts = {}
+    for k in (8, 16):
+        g = group(k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(g)
+            torch.cuda.synchronize()
+        by = {}
+        for e in _device_events(prof):
+            by[e.name[:60]] = by.get(e.name[:60], 0) + 1
+        counts[k] = by
+    per_batch = {n: (counts[16].get(n, 0) - counts[8].get(n, 0)) / 8
+                 for n in set(counts[8]) | set(counts[16])}
+    per_batch = {n: c for n, c in per_batch.items() if c}
+    groups = [group(64) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in groups:
+        run(g)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"fused_loop_kernels_per_batch": sum(per_batch.values()),
+            "fused_loop_kernels_by_name": per_batch,
+            "group_kernels_k8": sum(counts[8].values()),
+            "resolve_many_core_host_us_per_batch": host_s / (4 * 64) * 1e6}
+
+
 def busy_us(events) -> float:
     """Union length of the device kernel intervals, in us."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -97,8 +177,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         pdt, _ = run(batches, versions)
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = _device_events(prof)
     by_name: dict[str, list] = {}
     for e in kern:
         r = by_name.setdefault(e.name, [0, 0.0])
@@ -107,7 +186,8 @@ def main() -> int:
     busy = busy_us(kern)
     out.update(profiled_wall_s=pdt, device_busy_s=busy / 1e6,
                device_idle_share=1 - busy / 1e6 / pdt,
-               device_kernel_launches=len(kern))
+               device_kernel_launches=len(kern),
+               device_kernels_per_batch=len(kern) / BATCHES)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     out["top_device"] = [{"name": k[:80], "count": c, "us": round(us, 1)}
                          for k, (c, us) in top]
@@ -131,6 +211,21 @@ def main() -> int:
                                 "tottime_s": round(tt, 4),
                                 "cumtime_s": round(ct, 4)})
         print(f"  host {tt:8.3f} s own {ct:8.3f} s cum {nc:8d}x  {where}")
+    core = [v for (f, _, fn), v in st.stats.items()
+            if fn == "resolve_many_core" and "conflict_torch" in f]
+    if core:
+        out["resolve_many_core_cprofile_us_per_batch"] = \
+            core[0][3] / BATCHES * 1e6
+        print(f"  resolve_many_core: {core[0][3]:.3f} s cumulative, "
+              f"{core[0][3] / BATCHES * 1e6:.1f} us per batch")
+
+    out.update(fused_loop(batches[:4 * 8 + 24 + 256],
+                          versions[:4 * 8 + 24 + 256]))
+    print(f"fused loop: {out['fused_loop_kernels_per_batch']} device "
+          f"kernels per batch {out['fused_loop_kernels_by_name']}; "
+          f"{out['group_kernels_k8']} for a group of 8; host "
+          f"{out['resolve_many_core_host_us_per_batch']:.1f} us per batch "
+          "in resolve_many_core")
     print(json.dumps(out))
     return 0
 

@@ -22,15 +22,17 @@ to the numpy twin (ops/conflict_np.py):
   the K batches on one CUDA stream: every offset, pad flag and real
   batch count comes from host data (the commit versions), so the loop
   slices at host-known offsets and never syncs the card.
-- **The window/full-ring choice stays on the device.**  Where the
-  reference runs ``lax.cond(fast_ok, window, full)``, the history-check
-  kernel takes ``fast_ok`` as a device predicate: the window check is
-  launched with (fast_ok, 1) and the full check with (fast_ok, 0) into
-  the same hit vector, and the side not taken exits at once.
-- **Hand kernels** (ops/kernels.py): the history check, the in-order
-  commit chain, and the ring append behind RESOLVER_RING_INPLACE (into
-  a spare plane of a ping-pong pair).  The intra-batch overlap matrix,
-  slab build and verdict bit-pack are torch ops.
+- **Two launches a batch.**  Kernel K3 (``hist_check``) checks a
+  batch's reads against the history and makes the reference's
+  ``lax.cond(fast_ok, window, full)`` choice inside the launch, from the
+  snapshots, the batch's floor and the window's edge version on the
+  device.  Kernel K1 (``commit_chain``) then builds the intra-batch
+  matrix, runs the in-order chain, writes the verdicts and the batch's
+  slab into the hot buffer.  Nothing else runs on the card per batch.
+- **Hand kernels** (ops/kernels.py): those two, and the ring append
+  behind RESOLVER_RING_INPLACE (into a spare plane of a ping-pong
+  pair).  The group's set-up and final append and the verdict bit-pack
+  are torch ops, once per group.
 
 Every handle a submit returns supports ``np.asarray``: the device→host
 copy starts at dispatch into pinned memory and ``__array__`` waits on
@@ -45,8 +47,9 @@ import numpy as np
 import torch
 
 from . import kernels, keycode
-from .batch import COMMITTED, CONFLICT, TOO_OLD, EncodedBatch
-from .kernels import SENTINEL_MAPPED, hist_check, mapped, point_pair_rule
+from .batch import COMMITTED, TOO_OLD, EncodedBatch
+from .kernels import (SENTINEL_MAPPED, _pack_bits32, commit_chain,
+                      hist_check)
 from .keycode import DEFAULT_WIDTH
 
 SENTINEL_LANE = 0xFFFFFFFF
@@ -122,101 +125,7 @@ def state_to_numpy(state: ConflictState):
 
 
 # --------------------------------------------------------------------------
-# comparison primitives (torch ops on mapped lanes)
-
-
-def _lex_lt(a, b):
-    """Strict lex < over the trailing lane axis -> (lt, eq)."""
-    L = a.shape[-1]
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    lt = torch.zeros(shape, dtype=torch.bool, device=a.device)
-    eq = torch.ones_like(lt)
-    for l in range(L):
-        al, bl = a[..., l], b[..., l]
-        lt = lt | (eq & (al < bl))
-        eq = eq & (al == bl)
-    return lt, eq
-
-
-def _possibly_lt(a, b, width):
-    lt, eq = _lex_lt(a, b)
-    w1 = mapped(width + 1)
-    both_trunc = (a[..., -1] == w1) & (b[..., -1] == w1)
-    return lt | (eq & both_trunc)
-
-
-def _overlap(ab, ae, bb, be, width):
-    return _possibly_lt(ab, be, width) & _possibly_lt(bb, ae, width)
-
-
-def _point_intra(read_begin, write_begin, width):
-    """All-point intra-batch matrix: reads of i vs writes of j -> [B,B]."""
-    B = read_begin.shape[0]
-    L = read_begin.shape[-1]
-    eq = torch.ones(read_begin.shape[:2] + write_begin.shape[:2],
-                    dtype=torch.bool, device=read_begin.device)
-    for l in range(L - 1):
-        eq = eq & (read_begin[:, :, None, None, l]
-                   == write_begin[None, None, :, :, l])
-    m = point_pair_rule(eq, read_begin[:, :, None, None, -1],
-                        write_begin[None, None, :, :, -1], width)
-    eye = torch.eye(B, dtype=torch.bool, device=read_begin.device)
-    return m.any(dim=3).any(dim=1) & ~eye
-
-
-def _low32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> the int32 with the same low bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
-def _pack_bits32(m: torch.Tensor) -> torch.Tensor:
-    """[K, n] bool -> [K, ceil(n/32)] int32; bit b of word w = m[:, w*32+b]
-    (the words are built in int64: torch has no uint32 shift)."""
-    K, n = m.shape
-    nw = (n + 31) // 32
-    mp = torch.zeros((K, nw * 32), dtype=torch.int64, device=m.device)
-    mp[:, :n] = m
-    shifts = torch.arange(32, dtype=torch.int64, device=m.device)
-    return _low32((mp.view(K, nw, 32) << shifts).sum(dim=-1))
-
-
-# --------------------------------------------------------------------------
 # single-batch core
-
-
-def _batch_verdicts(read_begin, read_end, write_begin, write_end,
-                    hist_conflict, too_old, valid, B: int, width: int,
-                    points: bool = False):
-    """Intra-batch read-vs-write overlap matrix + the in-order commit
-    chain (kernel K1).  Returns (verdicts [B] int8, committed [B] bool)."""
-    if points:
-        M = _point_intra(read_begin, write_begin, width)
-    else:
-        m = _overlap(read_begin[:, :, None, None, :],
-                     read_end[:, :, None, None, :],
-                     write_begin[None, None, :, :, :],
-                     write_end[None, None, :, :, :], width)
-        eye = torch.eye(B, dtype=torch.bool, device=read_begin.device)
-        M = m.any(dim=3).any(dim=1) & ~eye
-    packed = _pack_bits32(M)                                  # [B, nw]
-    ok = valid & ~too_old
-    flags = torch.stack([hist_conflict, ok], dim=1).to(torch.int32)
-    conf = kernels.commit_chain(packed, flags) != 0
-    committed = ok & ~conf
-    verdicts = torch.where(
-        ~valid, COMMITTED,
-        torch.where(too_old, TOO_OLD,
-                    torch.where(conf, CONFLICT, COMMITTED))).to(torch.int8)
-    return verdicts, committed
-
-
-def _slab_from_writes(write_begin, write_end, committed, S_: int, L: int):
-    """[L, S_] lane slabs holding committed writes; sentinel elsewhere."""
-    valid_w = write_begin[..., -1] != SENTINEL_MAPPED              # [B,R]
-    ins = (committed[:, None] & valid_w).reshape(S_, 1)
-    slab_b = torch.where(ins, write_begin.reshape(S_, L), SENTINEL_MAPPED)
-    slab_e = torch.where(ins, write_end.reshape(S_, L), SENTINEL_MAPPED)
-    return slab_b.T.contiguous(), slab_e.T.contiguous()
 
 
 def _append(plane, slab, ring_inplace: bool, spares, idx: int):
@@ -254,35 +163,35 @@ def resolve_core(state: ConflictState, read_begin, read_end, write_begin,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
 
-    too_old = snap < state.floor
-    valid = snap >= 0
-
-    # 1. reads vs the device history ring -> [B]
+    # 1. reads vs the device history ring -> [B]; with a window, kernel
+    # K3 makes the reference's window/full-ring choice itself
     hit = torch.zeros(B, dtype=torch.int32, device=snap.device)
+    ring = (state.hb, state.he, state.hver)
     if window and window < C:
-        v_edge = state.hver[C - window - 1]
-        fast_ok = (~valid | too_old | (snap >= v_edge)).all() \
-            .to(torch.int32).reshape(1)
-        hist_check(read_begin, read_end, state.hb[:, C - window:],
-              state.he[:, C - window:], state.hver[C - window:], snap,
-              width, points, hit, fast_ok, 1)
-        hist_check(read_begin, read_end, state.hb, state.he, state.hver, snap,
-              width, points, hit, fast_ok, 0)
+        hist_check(read_begin, read_end, snap, width, points, hit, [ring],
+                   window=(state.hb[:, C - window:], state.he[:, C - window:],
+                           state.hver[C - window:]),
+                   edge=state.hver[C - window - 1:C - window],
+                   floor=state.floor.reshape(1))
     else:
-        hist_check(read_begin, read_end, state.hb, state.he, state.hver, snap,
-              width, points, hit)
+        hist_check(read_begin, read_end, snap, width, points, hit, [ring])
 
-    # 2-3. intra-batch overlap + in-order commit chain
-    verdicts, committed = _batch_verdicts(
-        read_begin, read_end, write_begin, write_end, hit != 0, too_old,
-        valid, B, width, points)
+    # 2-3. intra-batch overlap + in-order commit chain + the slab (K1)
+    verdicts = torch.empty(B, dtype=torch.int8, device=snap.device)
+    committed = torch.empty(B, dtype=torch.bool, device=snap.device)
     if commit_version < 0:
+        commit_chain(read_begin, read_end, write_begin, write_end, hit, snap,
+                     state.floor.reshape(1), width, points, verdicts,
+                     committed)
         return state, verdicts
+    slab_b = torch.empty((L, S_), dtype=torch.int32, device=snap.device)
+    slab_e = torch.empty_like(slab_b)
+    commit_chain(read_begin, read_end, write_begin, write_end, hit, snap,
+                 state.floor.reshape(1), width, points, verdicts, committed,
+                 slab=(slab_b, slab_e, None))
 
     # 4. append the batch's slab; evicting the S_ oldest slots raises
     # the too-old floor to their max version
-    slab_b, slab_e = _slab_from_writes(write_begin, write_end, committed,
-                                       S_, L)
     hb2 = _append(state.hb, slab_b, ring_inplace, spares, 0)
     he2 = _append(state.he, slab_e, ring_inplace, spares, 1)
     slab_v = torch.full((S_,), commit_version, dtype=torch.int64,
@@ -340,38 +249,40 @@ def resolve_many_core(state: ConflictState, read_begin, read_end,
     hote = torch.cat([state.he[:, C - W - 1:], fill], dim=1)
     hotv = torch.cat([state.hver[C - W - 1:],
                       torch.full((T,), -1, dtype=torch.int64, device=dev)])
-    lastv = state.hver[C - 1]
-    verdicts = []
-    for k in range(K):
-        rb, re, wb, we, sn = (read_begin[k], read_end[k], write_begin[k],
-                              write_end[k], snap[k])
+    hits = torch.zeros((K, B), dtype=torch.int32, device=dev)
+    verdicts = torch.empty((K, B), dtype=torch.int8, device=dev)
+    committed = torch.empty((K, B), dtype=torch.bool, device=dev)
+    full = ((state.hb, state.he, state.hver), (hotb, hote, hotv))
+
+    def views(k):
+        """Batch k's arguments of K3 and K1.  Its window is
+        hot[1+off : 1+off+W] and its edge hot[off]; its full side is the
+        cold ring + the whole hot buffer (rows not yet written hold
+        sentinel intervals, which overlap nothing); its slab goes to
+        hot[1+W+off : 1+W+off+S_]."""
         off = k * S_
-        too_old = sn < floors[k]
-        valid = sn >= 0
-        # batch k's window = hot[1+off : 1+off+W]; its edge = hot[off]
-        fast_ok = (~valid | too_old | (sn >= hotv[off])).all() \
-            .to(torch.int32).reshape(1)
-        hit = torch.zeros(B, dtype=torch.int32, device=dev)
         win = slice(off + 1, off + 1 + W)
-        hist_check(rb, re, hotb[:, win], hote[:, win], hotv[win], sn, width,
-              points, hit, fast_ok, 1)
-        # full: the cold ring + the whole hot buffer (rows not yet written
-        # hold sentinel intervals, which overlap nothing)
-        hist_check(rb, re, state.hb, state.he, state.hver, sn, width, points,
-              hit, fast_ok, 0)
-        hist_check(rb, re, hotb, hote, hotv, sn, width, points, hit, fast_ok, 0)
-        v, committed = _batch_verdicts(rb, re, wb, we, hit != 0, too_old,
-                                       valid, B, width, points)
-        verdicts.append(v)
+        dst = slice(off + 1 + W, off + 1 + W + S_)
+        rows = dict(rb=read_begin[k], re=read_end[k], snap=snap[k],
+                    width=width, points=points, hit=hits[k])
+        return (dict(rows, full=full,
+                     window=(hotb[:, win], hote[:, win], hotv[win]),
+                     edge=hotv[off:off + 1], floor=floors[k:k + 1]),
+                dict(rows, wb=write_begin[k], we=write_end[k],
+                     floor=floors[k:k + 1], verdicts=verdicts[k],
+                     committed=committed[k],
+                     slab=(hotb[:, dst], hote[:, dst], hotv[dst])))
+
+    # each batch is two launches, K3 then K1, and no other device op
+    launches = kernels.GroupLaunches(views, K)
+    lastv = None        # until a real batch has run: the cold ring's newest
+    for k in range(K):
         if commit_versions[k] >= 0:
             lastv = commit_versions[k]
-        slab_b, slab_e = _slab_from_writes(wb, we, committed, S_, L)
-        dst = slice(off + 1 + W, off + 1 + W + S_)
-        hotb[:, dst] = slab_b
-        hote[:, dst] = slab_e
         # pad slabs carry the last real version: version density keeps
         # the window edge test sound
-        hotv[dst] = lastv
+        launches.run(k, -1 if lastv is None else lastv,
+                     state.hver[C - 1:] if lastv is None else None)
 
     # bulk append of the REAL slabs only (real batches precede pads)
     n_real = sum(1 for cv in commit_versions if cv >= 0)
@@ -390,7 +301,7 @@ def resolve_many_core(state: ConflictState, read_begin, read_end,
     evict_mask = torch.arange(T, device=dev) < shift
     floor2 = torch.maximum(start_floor, torch.where(
         evict_mask, state.hver[:T], -1).max())
-    return ConflictState(hb2, he2, hv2, floor2), torch.stack(verdicts)
+    return ConflictState(hb2, he2, hv2, floor2), verdicts
 
 
 def resolve_many_packed(state: ConflictState, lanes, snaps,
