@@ -18,9 +18,10 @@ path on the card and exits non-zero on any failure:
    and the full side, and on a lone ring;
 4. the port's Resolver at the reference's device operating point
    (B=64, R=8, 32-byte keys, ring 1<<17, window 8192, group bucket 8,
-   pipeline and verdict bitmask on) answers 2048 concurrently submitted
-   mako batches (zipf 0.99, 2 point reads + 2 point writes a txn); every
-   verdict must equal the port's exact C++ conflict set;
+   pipeline and verdict bitmask on), the dictionary off, answers 2048
+   concurrently submitted mako batches (zipf 0.99, 2 point reads + 2
+   point writes a txn); every verdict must equal the port's exact C++
+   conflict set;
 5. random ranges (the interval rule): at the same size with ~10% of
    snapshots older than the window (the full-ring fallback), and at a
    ring of 1<<13 with a window of 1024 (eviction raises the floor, so
@@ -28,7 +29,23 @@ path on the card and exits non-zero on any failure:
    port's plain path on the CPU;
 6. RESOLVER_RING_INPLACE=True on the mako stream: verdicts and ring
    state identical to phase 4;
-7. one JSON line with each kernel's launches in phase 6's run, max
+7. the endpoint dictionary (CONFLICT_DICT_SLOTS=1<<21, its default) on
+   phase 4's mako run: verdicts equal to the exact C++ set and to phase
+   4's, ring state equal to phase 4's, every group through the
+   dictionary;
+8. the dictionary at its smallest size (8*R*B*64 slots) under 288
+   batches of random ranges, 90% of them over a wide key space (the
+   interval rule, 4-segment ids; more distinct endpoints than slots, so
+   it evicts), at phase 5's small ring, in groups of 16: verdicts, ring
+   and dictionary contents bit-identical to the port's plain path on the
+   CPU;
+9. the wire path at the reference bench.py's configuration (B=64, R=2,
+   ring 1<<16, window 1024, dictionary 1<<21; 4096 mako batches in
+   groups of 256, 8 in flight; one warm pass, then ``reset_ring(0)``
+   and the measured pass): the fused single-upload path, the ids path
+   and the lanes path, each with verdicts equal to the C++ set's
+   ``resolve_wire``, and txns/s for each and for the C++ set;
+10. one JSON line with each kernel's launches in phase 6's run, max
    error, times and bound (K1 also its latency bound: B chain steps at
    the step time measured in phase 3); the last line is the result.
 
@@ -51,6 +68,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 MAKO_BATCHES = 2048
+WIRE_BATCHES = 4096
 B, R, WIDTH = 64, 8, 32
 
 
@@ -431,9 +449,11 @@ def smoke_knobs(**over):
     return Knobs().override(**kv)
 
 
-def run_resolver(knobs, batches, versions, device=None):
+def run_resolver(knobs, batches, versions, device=None, want_dict=False):
     """All batches submitted concurrently to one Resolver; returns
-    (replies, seconds, pipeline metrics, final ring state as numpy)."""
+    (replies, seconds, pipeline metrics with the backend's dictionary
+    counters, final ring state as numpy).  With ``want_dict`` the
+    metrics carry the dictionary's contents too."""
     from foundationdb_tpu_torch.core.resolver import (ResolveBatchRequest,
                                                       Resolver)
     from foundationdb_tpu_torch.ops.conflict_torch import state_to_numpy
@@ -447,15 +467,23 @@ def run_resolver(knobs, batches, versions, device=None):
         replies = await asyncio.gather(*(res.resolve(r) for r in reqs))
         dt = time.perf_counter() - t0
         m = res._pipeline.metrics()
+        be = res.backend
+        m.update(dict_dispatches=be.dict_dispatches,
+                 dict_fallbacks=be.dict_fallbacks, h2d_bytes=be.cs.h2d_bytes)
+        if want_dict:
+            m["dict"] = be.cs.dict_to_numpy()
         await res.close()
-        return replies, dt, m, state_to_numpy(res.backend.cs.state)
+        return replies, dt, m, state_to_numpy(be.cs.state)
 
     return asyncio.run(main())
 
 
-def range_batches(n: int, seed: int, old_lag: tuple[int, int]):
-    """n batches of random ranges over 32-byte-or-shorter keys; ~10% of
-    snapshots lag ``old_lag`` batches, the rest 1-5 batches."""
+def range_batches(n: int, seed: int, old_lag: tuple[int, int],
+                  span: int = 200_000, hot: float = 1.0):
+    """n batches of random ranges over 32-byte-or-shorter keys, begins
+    drawn from the first 200000 keys with probability ``hot``, else from
+    ``span`` keys; ~10% of snapshots lag ``old_lag`` batches, the rest
+    1-5 batches."""
     from foundationdb_tpu_torch.ops.batch import TxnRequest
     g = np.random.default_rng(seed)
 
@@ -471,7 +499,8 @@ def range_batches(n: int, seed: int, old_lag: tuple[int, int]):
             rr, wr = [], []
             for dst in (rr, wr):
                 for _ in range(int(g.integers(1, R + 1))):
-                    a = int(g.integers(0, 200_000))
+                    a = int(g.integers(0, 200_000 if g.random() < hot
+                                       else span))
                     dst.append((key(a), key(a + int(g.integers(1, 300)))))
             lag = int(g.integers(*old_lag)) if g.random() < 0.1 \
                 else int(g.integers(1, 6))
@@ -610,11 +639,102 @@ def main() -> None:
         fail("RESOLVER_RING_INPLACE changed verdicts or ring state")
     if min(got7.values()) == 0:
         fail(f"the ring-inplace mako run did not launch every kernel: {got7}")
-    for got in (got4, got5, got6, got7):
+
+    # 7. the endpoint dictionary on the mako stream
+    dkn = smoke_knobs(CONFLICT_DICT_SLOTS=1 << 21)
+    (rep8, dt8, m8, st8), got8 = count_run(
+        lambda: run_resolver(dkn, mb, mv))
+    v8 = flat(rep8)
+    mism8 = sum(1 for a, b in zip(v8, ref) if a != b)
+    say(f"resolver mako dictionary 1<<21: {dt8:.3f} s = {n_txns / dt8:.1f} "
+        f"txns/s (lanes {n_txns / dt4:.1f}); dispatches="
+        f"{m8['device_dispatches']} dictionary groups={m8['dict_dispatches']}"
+        f" fallbacks={m8['dict_fallbacks']} h2d bytes per batch "
+        f"{m8['h2d_bytes'] / MAKO_BATCHES:.1f} (lanes "
+        f"{m4['h2d_bytes'] / MAKO_BATCHES:.1f}) host us per batch "
+        f"{m8['device_dispatch_us_per_batch']:.1f} (lanes "
+        f"{m4['device_dispatch_us_per_batch']:.1f}) mismatches_vs_cpp={mism8}"
+        f" verdicts equal={v8 == v4} ring equal={same_state(st8, st4)} "
+        f"launches={got8}")
+    if len(v8) != len(ref) or mism8 or v8 != v4 or not same_state(st8, st4):
+        fail("the dictionary changed mako verdicts or ring state")
+    if m8["dict_dispatches"] == 0 or m8["dict_fallbacks"] \
+            or m4["dict_dispatches"]:
+        fail("the dictionary run did not take the dictionary branch "
+             f"every group: {m8['dict_dispatches']} groups, "
+             f"{m8['dict_fallbacks']} fallbacks")
+
+    # 8. the smallest dictionary under range streams that make it evict.
+    # Nearly every endpoint is new, 1152 a batch: groups of 16 batches
+    # keep a group's updates under the ids path's 32768 (a larger group
+    # would take the lanes fallback)
+    slots = 8 * R * B * 64
+    ekn = smoke_knobs(CONFLICT_RING_CAPACITY=1 << 13,
+                      CONFLICT_WINDOW_SLOTS=1024, CONFLICT_DICT_SLOTS=slots,
+                      RESOLVER_GROUP_MAX=16)
+    rb9, rv9 = range_batches(288, 9, (17, 40), span=1 << 40, hot=0.1)
+    keys9 = {k for b in rb9 for t in b
+             for rr in (t.read_ranges, t.write_ranges) for r in rr for k in r}
+    (rep9, dt9, m9, st9), got9 = count_run(
+        lambda: run_resolver(ekn, rb9, rv9, want_dict=True))
+    t9 = time.perf_counter()
+    rep9c, _, m9c, st9c = run_resolver(ekn, rb9, rv9, device=torch.device(
+        "cpu"), want_dict=True)
+    dt9c = time.perf_counter() - t9
+    v9, v9c = flat(rep9), flat(rep9c)
+    dict_eq = np.array_equal(m9["dict"], m9c["dict"])
+    say(f"resolver ranges, dictionary {slots} slots, {len(keys9)} distinct "
+        f"endpoints (ring 1<<13, window 1024): 288 batches, aborts="
+        f"{sum(1 for x in v9 if x == 1)} too_old="
+        f"{sum(1 for x in v9 if x == 2)}; card {dt9:.3f} s, cpu plain "
+        f"{dt9c:.3f} s; dictionary groups={m9['dict_dispatches']} "
+        f"fallbacks={m9['dict_fallbacks']}; verdicts equal={v9 == v9c} ring "
+        f"equal={same_state(st9, st9c)} dictionary equal={dict_eq} "
+        f"launches={got9}")
+    if v9 != v9c or not same_state(st9, st9c) or not dict_eq:
+        fail("dictionary range verdicts, ring or dictionary differ from the "
+             "CPU plain path")
+    if len(keys9) < slots or m9["dict_dispatches"] == 0 \
+            or m9["dict_fallbacks"] or 1 not in v9:
+        fail("the eviction run did not evict, did not take the dictionary "
+             "every group, or had no conflict")
+
+    # 9. the wire path at the reference bench.py's configuration
+    from foundationdb_tpu_torch.bench import profile_fused as pf
+    from foundationdb_tpu_torch.ops.batch import wire_from_txns
+    wb, wv = MakoWorkload(n_keys=1_000_000, key_width=WIDTH, seed=42) \
+        .make_batches(WIRE_BATCHES, B)
+    wires = [wire_from_txns(t) for t in wb]
+    wn = WIRE_BATCHES * B
+    cpp_w = CppConflictSet()
+    t0 = time.perf_counter()
+    want = [x for w, v in zip(wires, wv) for x in cpp_w.resolve_wire(w, v)]
+    rates = {"cpp": wn / (time.perf_counter() - t0)}
+    gots = []
+    for path in ("fused", "ids", "lanes"):
+        be, begin = pf.make_backend(path), pf.begin_of(path)
+        pf.measured_pass(be, wires, wv, begin)          # warm pass
+        r, got = count_run(lambda: pf.measured_pass(be, wires, wv, begin))
+        gots.append(got)
+        rates[path] = wn / r["s"]
+        mism = sum(1 for a, b in zip(r["verdicts"], want) if a != b)
+        say(f"wire {path}: {WIRE_BATCHES} batches x {B} txns in "
+            f"{r['s']:.3f} s = {rates[path]:.1f} txns/s; h2d bytes per "
+            f"batch {r['h2d_bytes'] / WIRE_BATCHES:.1f}; dictionary groups "
+            f"{r['dict_dispatches']}; mismatches_vs_cpp_resolve_wire={mism} "
+            f"launches={got}")
+        if len(r["verdicts"]) != len(want) or mism:
+            fail(f"wire path {path} differs from CppConflictSet.resolve_wire")
+        if (path != "lanes") != (r["dict_dispatches"] > 0) \
+                or got["hist_check"] == 0:
+            fail(f"wire path {path} did not take its branch: {r}, {got}")
+    say(f"wire txns/s: {json.dumps(rates)}")
+
+    for got in (got4, got5, got6, got7, got8, got9, *gots):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 7. the kernels line, then the result.  Its launches are those of the
+    # 10. the kernels line, then the result.  Its launches are those of the
     # mako run with RESOLVER_RING_INPLACE (phase 6), the one run that
     # takes all three kernels; each phase printed its own counts above.
     meta = {

@@ -3,23 +3,29 @@
     python -m foundationdb_tpu_torch.bench.profile_resolver
 
 Runs the port's Resolver at the reference's device operating point (the
-knobs of chip_smoke.py's phase 4) three times over the same 1024 seeded
-mako batches, all submitted concurrently:
+knobs of chip_smoke.py's phase 4) over the same 1024 seeded mako batches,
+all submitted concurrently, with the endpoint dictionary off
+(CONFLICT_DICT_SLOTS=0, the lanes path) and on (1<<21, its default):
 
-1. plain: wall time, txns/s and the device pipeline's own counters;
-2. under ``torch.profiler``: device time by kernel name, the device's
-   busy time (the union of its kernel intervals) and idle share of the
-   wall time, and device kernels per batch;
-3. under ``cProfile``: the host functions with the most own time, and
-   ``resolve_many_core``'s cumulative host time per batch;
+1. plain, off/on/on/off: wall time, txns/s, the device pipeline's own
+   counters (host µs per batch in encode+dispatch), host-to-device bytes
+   per batch, and the groups that took the dictionary;
+2. under ``torch.profiler``, each mode: device time by kernel name, the
+   device's busy time (the union of its kernel intervals) and idle share
+   of the wall time, and device kernels per batch;
+3. under ``cProfile``, each mode: the host functions with the most own
+   time, and ``resolve_many_core``'s cumulative host time per batch;
+4. the dictionary's indexing ops for one group of 64 batches (the
+   pipeline's group) under torch.profiler, cold and warm
+   (``profile_fused.b6_device_us``);
 
 then drives the conflict set's fused group dispatch directly
 (``resolve_many_packed`` on lanes already on the card):
 
-4. the device kernels the fused loop issues per batch: the profiler's
+5. the device kernels the fused loop issues per batch: the profiler's
    count for a group of 16 batches less that for a group of 8, over 8
    (what a group costs once cancels), by kernel name;
-5. host µs per batch in ``resolve_many_core``: 4 groups of 64 batches
+6. host µs per batch in ``resolve_many_core``: 4 groups of 64 batches
    (the pipeline's group size) enqueued back to back, timed on the host
    clock, then one sync (few enough that the card keeps up and the
    launch queue never fills).
@@ -39,22 +45,27 @@ import time
 BATCHES = 1024
 
 
-def knobs():
+MODES = {"dict_off": 0, "dict_on": 1 << 21}
+
+
+def knobs(dict_slots: int = 0):
     from ..runtime.knobs import Knobs
     return Knobs().override(
         RESOLVER_CONFLICT_BACKEND="cuda", RESOLVER_BATCH_TXNS=64,
         RESOLVER_RANGES_PER_TXN=8, KEY_ENCODE_BYTES=32,
         CONFLICT_RING_CAPACITY=1 << 17, CONFLICT_WINDOW_SLOTS=8192,
-        CONFLICT_DICT_SLOTS=0, RESOLVER_GROUP_BUCKET=8)
+        CONFLICT_DICT_SLOTS=dict_slots, RESOLVER_GROUP_BUCKET=8)
 
 
-def run(batches, versions):
+def run(batches, versions, dict_slots: int = 0):
+    """(seconds, pipeline metrics + host-to-device bytes and dictionary
+    dispatches) of one Resolver over the batches."""
     import torch
 
     from ..core.resolver import ResolveBatchRequest, Resolver
 
     async def main():
-        res = Resolver(knobs())
+        res = Resolver(knobs(dict_slots))
         prev = [0] + versions[:-1]
         reqs = [ResolveBatchRequest(p, v, t)
                 for p, v, t in zip(prev, versions, batches)]
@@ -63,6 +74,9 @@ def run(batches, versions):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         m = res._pipeline.metrics()
+        m["h2d_bytes"] = res.backend.cs.h2d_bytes
+        m["dict_dispatches"] = res.backend.dict_dispatches
+        m["dict_fallbacks"] = res.backend.dict_fallbacks
         await res.close()
         return dt, m
 
@@ -153,30 +167,14 @@ def busy_us(events) -> float:
     return total
 
 
-def main() -> int:
+def profiled(batches, versions, dict_slots: int, tag: str) -> dict:
+    """Steps 2 and 3 for one mode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        print("FAIL: no CUDA device", file=sys.stderr)
-        return 1
-    from .workload import MakoWorkload
-    batches, versions = MakoWorkload(n_keys=1_000_000, seed=42) \
-        .make_batches(BATCHES, 64)
-    n = BATCHES * 64
-    run(batches[:64], versions[:64])                  # warm-up
-    dt, m = run(batches, versions)
-    out = {"device": torch.cuda.get_device_name(0), "batches": BATCHES,
-           "wall_s": dt, "txns_per_s": n / dt,
-           "dispatches": m["device_dispatches"],
-           "group_mean": m["device_group_mean"],
-           "dispatch_us_per_batch": m["device_dispatch_us_per_batch"],
-           "overlap_ratio": m["device_overlap_ratio"]}
-    print(f"plain: {dt:.3f} s, {n / dt:.1f} txns/s, {m}")
-
+    out = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pdt, _ = run(batches, versions)
+        pdt, _ = run(batches, versions, dict_slots)
     kern = _device_events(prof)
     by_name: dict[str, list] = {}
     for e in kern:
@@ -191,20 +189,20 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     out["top_device"] = [{"name": k[:80], "count": c, "us": round(us, 1)}
                          for k, (c, us) in top]
-    print(f"profiled: wall {pdt:.3f} s, device busy {busy / 1e6:.4f} s, "
-          f"idle share {out['device_idle_share']:.4f}, "
+    print(f"{tag} profiled: wall {pdt:.3f} s, device busy "
+          f"{busy / 1e6:.4f} s, idle share {out['device_idle_share']:.4f}, "
           f"{len(kern)} device kernels")
     for k, (c, us) in top:
         print(f"  device {us / 1e3:10.3f} ms  {c:7d}x  {k[:100]}")
 
     pr = cProfile.Profile()
     pr.enable()
-    cdt, _ = run(batches, versions)
+    cdt, _ = run(batches, versions, dict_slots)
     pr.disable()
     st = pstats.Stats(pr)
     rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
     out["top_host"] = []
-    print(f"cProfile: wall {cdt:.3f} s")
+    print(f"{tag} cProfile: wall {cdt:.3f} s")
     for (f, line, fn), (cc, nc, tt, ct, _) in rows:
         where = f"{'/'.join(f.rsplit('/', 2)[-2:])}:{line}:{fn}"
         out["top_host"].append({"fn": where, "calls": nc,
@@ -218,6 +216,41 @@ def main() -> int:
             core[0][3] / BATCHES * 1e6
         print(f"  resolve_many_core: {core[0][3]:.3f} s cumulative, "
               f"{core[0][3] / BATCHES * 1e6:.1f} us per batch")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    from ..ops.batch import wire_from_txns
+    from .profile_fused import b6_device_us
+    from .workload import MakoWorkload
+    batches, versions = MakoWorkload(n_keys=1_000_000, seed=42) \
+        .make_batches(BATCHES, 64)
+    n = BATCHES * 64
+    out = {"device": torch.cuda.get_device_name(0), "batches": BATCHES}
+    for slots in MODES.values():
+        run(batches[:64], versions[:64], slots)            # warm-up
+    for tag in ("dict_off", "dict_on", "dict_on", "dict_off"):
+        dt, m = run(batches, versions, MODES[tag])
+        r = {"wall_s": dt, "txns_per_s": n / dt,
+             "dispatches": m["device_dispatches"],
+             "group_mean": m["device_group_mean"],
+             "dispatch_us_per_batch": m["device_dispatch_us_per_batch"],
+             "overlap_ratio": m["device_overlap_ratio"],
+             "h2d_bytes_per_batch": m["h2d_bytes"] / BATCHES,
+             "dict_dispatches": m["dict_dispatches"],
+             "dict_fallbacks": m["dict_fallbacks"]}
+        out.setdefault(tag, {}).setdefault("plain", []).append(r)
+        print(f"{tag} plain: {dt:.3f} s, {n / dt:.1f} txns/s, {r}")
+    for tag, slots in MODES.items():
+        out[tag].update(profiled(batches, versions, slots, tag))
+    wires = [wire_from_txns(b) for b in batches[-64:]]
+    out["dict_on"]["b6"] = b6_device_us(wires, versions[-64:], (64, 64, 8))
+    print(f"dictionary ops of one group of 64: {out['dict_on']['b6']}")
 
     out.update(fused_loop(batches[:4 * 8 + 24 + 256],
                           versions[:4 * 8 + 24 + 256]))

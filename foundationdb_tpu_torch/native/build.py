@@ -18,6 +18,7 @@ BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
 TARGETS = {
     "conflictset": ["conflictset.cpp"],
+    "keycodec": ["keycodec.cpp"],
 }
 
 CXXFLAGS = ["-std=c++20", "-O3", "-march=native", "-fPIC", "-shared",
@@ -37,7 +38,10 @@ def build(name: str, force: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", *CXXFLAGS, "-o", tmp, *srcs]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"building lib{name}.so failed: {' '.join(cmd)}\n"
+                           f"{r.stderr}")
     os.replace(tmp, out)
     return out
 

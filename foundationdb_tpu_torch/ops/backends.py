@@ -123,6 +123,22 @@ def resolve_group_begin(backend, batches: list[list[TxnRequest]],
                        for t, v in zip(batches, versions)])
 
 
+def resolve_group_wire_begin(backend, wires: list, versions: list[int]):
+    """Group-resolve serialized WireBatches over any backend.  The
+    encoded device backend takes its zero-walk dictionary path; a backend
+    with resolve_wire (cpp) consumes the wire form directly; anything
+    else deserializes and falls back to the TxnRequest group path."""
+    fn = getattr(backend, "resolve_group_wire_begin", None)
+    if fn is not None and getattr(backend, "_dict", None) is not None:
+        return fn(wires, versions)
+    rw = getattr(backend, "resolve_wire", None)
+    if rw is not None:
+        return _completed([rw(w, v) for w, v in zip(wires, versions)])
+    from .batch import txns_from_wire
+    return resolve_group_begin(backend, [txns_from_wire(w) for w in wires],
+                               versions)
+
+
 def coalesce_ranges(ranges: list[tuple[bytes, bytes]], max_n: int) -> list[tuple[bytes, bytes]]:
     """Merge sorted-adjacent ranges until len <= max_n (conservative)."""
     if len(ranges) <= max_n:
@@ -148,12 +164,17 @@ class EncodedConflictBackend:
     byte-string TxnRequest interface."""
 
     def __init__(self, conflict_set, batch_txns: int, ranges_per_txn: int,
-                 width: int, exact_window: int = 5_000_000,
-                 group_bucket: int = 0):
+                 width: int, dict_encoder=None,
+                 exact_window: int = 5_000_000, group_bucket: int = 0):
         self.cs = conflict_set
         self.B = batch_txns
         self.R = ranges_per_txn
         self.width = width
+        self._dict = dict_encoder       # DictEncoder when transfer-compressed
+        # group dispatches that went through the dictionary, and groups
+        # whose dictionary encode overflowed into the lanes path
+        self.dict_dispatches = 0
+        self.dict_fallbacks = 0
         self._exact_window = exact_window
         # pin group dispatches to one compiled K bucket (see the
         # RESOLVER_GROUP_BUCKET knob); groups larger than the pin use the
@@ -164,8 +185,9 @@ class EncodedConflictBackend:
         # shapes (bench/abort_parity.py), so they are checked exactly
         # instead — lazily created on the first fat txn.  The sidecar is
         # only TRUSTED for snapshots >= _exact_since: it has seen every
-        # committed write from that version on (it is created mid-stream,
-        # so older history is incomplete — a fat txn with an older snapshot falls back to
+        # committed write from that version on (it is created mid-stream
+        # and wire-path resolves bypass it, so older history is
+        # incomplete — a fat txn with an older snapshot falls back to
         # conservative coalescing instead of risking a missed conflict)
         self._exact = None
         self._exact_failed = False
@@ -258,6 +280,13 @@ class EncodedConflictBackend:
                         t.read_snapshot))
             for i, t in enumerate(txns)]
         return kernel_txns, fat_map
+
+    def _invalidate_sidecar(self, version: int) -> None:
+        """Wire-path resolves bypass the sidecar: its history is
+        incomplete from ``version`` on, so fat routing re-arms only for
+        snapshots at or above it."""
+        if self._exact is not None and self._exact_since is not None:
+            self._exact_since = max(self._exact_since, version)
 
     def _chunk_txns(self, txns: list[TxnRequest]) -> list[list[TxnRequest]]:
         """Split a PREPARED (kernel-shaped) batch into B-txn chunks."""
@@ -370,10 +399,29 @@ class EncodedConflictBackend:
             chunks.extend(cs_)
             flat_cvs.extend([v] * len(cs_))
         counts = [len(c) for c in chunks]
+        use_dict = self._dict is not None \
+            and hasattr(self.cs, "resolve_group_submit_ids")
         pending = []                        # (n_chunks, verdict handle)
         for start in range(0, len(chunks), max_k):
             sub = chunks[start:start + max_k]
             subv = flat_cvs[start:start + max_k]
+            if use_dict:
+                d = self._dict
+                from .conflict_torch import UPD_BUCKETS
+                K = self._k_bucket(len(sub))
+                enc = d.encode_group(sub, self.B, self.R, K)
+                if enc is not None and d.n_upd <= UPD_BUCKETS[-1]:
+                    ids, snaps, _counts, compact = enc
+                    self.dict_dispatches += 1
+                    pending.append((len(sub), self.cs.resolve_group_submit_ids(
+                        ids, snaps, (K, self.B, self.R), subv,
+                        d.upd_slots, d.upd_lanes, d.n_upd, compact)))
+                    continue
+                # update-buffer (or bucket) overflow: the inserted
+                # endpoints are real table state — ship them, then
+                # lanes-path this sub-group
+                self.dict_fallbacks += 1
+                self.cs.apply_dict_updates(d.upd_slots, d.upd_lanes, d.n_upd)
             ebs = [encode_batch(c, self.B, self.R, self.width) for c in sub]
             pending.append((len(sub),
                             group(ebs, subv, k_pad=self._k_bucket(len(sub)))))
@@ -405,9 +453,65 @@ class EncodedConflictBackend:
 
         return finish()
 
+    def resolve_group_wire_begin(self, wires: list, versions: list[int]):
+        """Group resolve over serialized WireBatches (dictionary path):
+        no Python txn walk — ONE native group-encoder call assembles ids,
+        snapshots and versions into a single fused buffer, shipped in a
+        single upload per sub-group.  Requires the dict encoder; callers
+        fall back to resolve_group_begin on TxnRequests otherwise."""
+        if self._dict is None \
+                or not hasattr(self.cs, "resolve_group_submit_fused"):
+            raise ValueError("the wire path needs the endpoint dictionary")
+        # wire batches bypass the exact sidecar: fat routing must re-arm
+        self._invalidate_sidecar(max(versions) if versions else 0)
+        from .conflict_torch import FUSED_UPD_BUCKETS, GROUP_BUCKETS
+        max_k = GROUP_BUCKETS[-1]
+        d = self._dict
+        pending = []                        # (counts, verdict handle)
+        for start in range(0, len(wires), max_k):
+            sub = wires[start:start + max_k]
+            subv = versions[start:start + max_k]
+            K = self._k_bucket(len(sub))
+            self.dict_dispatches += 1
+            enc = d.encode_group_fused(sub, self.B, self.R, K, subv)
+            if enc is None:
+                # buffer overflow can't happen with a worst-case-sized
+                # buffer; the partial insertions are real regardless
+                self.cs.apply_dict_updates(d.upd_slots, d.upd_lanes, d.n_upd)
+                raise ValueError("update buffer overflow on wire path")
+            fused, counts, compact, off_pi, n_upd = enc
+            # the fused buffer's update region is sized to min(max_upd,
+            # largest bucket); a bucket past that capacity must ship
+            # out-of-band instead of overrunning
+            u_cap = min(d.max_upd, FUSED_UPD_BUCKETS[-1])
+            U = next((b for b in FUSED_UPD_BUCKETS if b >= n_upd), None)
+            if U is None or U > u_cap:
+                self.cs.apply_dict_updates(d.upd_slots, d.upd_lanes, n_upd)
+                U = 0
+            total = d.pack_updates_into(fused, off_pi, K, self.B, U)
+            pending.append((counts, self.cs.resolve_group_submit_fused(
+                fused[:total], (K, self.B, self.R), compact, U, subv)))
+
+        async def finish() -> list[list[int]]:
+            from ..runtime.simloop import SimEventLoop
+            loop = asyncio.get_running_loop()
+            sim = isinstance(loop, SimEventLoop)
+            out = []
+            for counts, v in pending:
+                if sim:
+                    host = np.asarray(v)
+                else:
+                    host = await _DeviceSyncWorker.shared().run(np.asarray, v)
+                self._count_readback(v, host, sum(counts))
+                for k, cnt in enumerate(counts):
+                    out.append(host[k][:cnt].tolist())
+            return out
+
+        return finish()
+
     def reset_ring(self, oldest_version: int = 0) -> bool:
-        """Clear conflict history (fresh-backend verdict semantics);
-        False if unsupported."""
+        """Clear conflict history (fresh-backend verdict semantics) while
+        keeping the transfer dictionary warm; False if unsupported."""
         fn = getattr(self.cs, "reset_ring", None)
         if fn is None:
             return False
@@ -436,25 +540,42 @@ def make_conflict_backend(knobs: Knobs, device=None):
     if kind == "cpp":
         from .conflict_cpp import CppConflictSet
         return CppConflictSet()
+    dict_encoder = None
     if kind == "numpy":
         from .conflict_np import NumpyConflictSet
         cs = NumpyConflictSet(knobs.CONFLICT_RING_CAPACITY, knobs.KEY_ENCODE_BYTES)
     elif kind == "cuda":
-        # lanes are shipped whole: the endpoint dictionary
-        # (CONFLICT_DICT_SLOTS) is not ported yet, and verdicts never
-        # depend on it
-        from .conflict_torch import TorchConflictSet
+        from .conflict_torch import GROUP_BUCKETS, TorchConflictSet
+        dict_slots = knobs.CONFLICT_DICT_SLOTS
+        # the allocator must always find an unstamped slot: require room
+        # for two full worst-case dispatch groups, else ship lanes
+        if dict_slots and dict_slots < 8 * knobs.RESOLVER_RANGES_PER_TXN \
+                * knobs.RESOLVER_BATCH_TXNS * 64:
+            dict_slots = 0
         cs = TorchConflictSet(knobs.CONFLICT_RING_CAPACITY,
                               knobs.KEY_ENCODE_BYTES, device=device,
                               window=knobs.CONFLICT_WINDOW_SLOTS,
+                              dict_slots=dict_slots,
                               ring_inplace=knobs.RESOLVER_RING_INPLACE,
                               pack_verdicts=knobs.RESOLVER_VERDICT_BITMASK)
+        if dict_slots:
+            from .batch import DictEncoder
+            # update buffer sized to one dispatch's worst case (every
+            # endpoint of every range new): overflow is impossible and
+            # the lanes fallback exists anyway.  A codec that does not
+            # build raises here.
+            dict_encoder = DictEncoder(
+                dict_slots, knobs.KEY_ENCODE_BYTES,
+                max_upd=4 * knobs.RESOLVER_RANGES_PER_TXN
+                * knobs.RESOLVER_BATCH_TXNS * GROUP_BUCKETS[-1],
+                take=cs.staging.take)
     else:
         raise ValueError(f"unknown RESOLVER_CONFLICT_BACKEND {kind!r}")
     return EncodedConflictBackend(
         cs, knobs.RESOLVER_BATCH_TXNS,
         knobs.RESOLVER_RANGES_PER_TXN,
         knobs.KEY_ENCODE_BYTES,
+        dict_encoder=dict_encoder,
         group_bucket=knobs.RESOLVER_GROUP_BUCKET,
         # the sidecar's self-imposed floor must track the TXN-LIFE window
         # (the same floor the resolver applies to the whole backend) —

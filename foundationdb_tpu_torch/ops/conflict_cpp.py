@@ -2,7 +2,7 @@
 
 Exact byte-string semantics (no key encoding), matching the oracle on all
 inputs; this is the CPU baseline BASELINE.md's north-star metric compares
-the TPU kernel against.
+the device kernels against.
 """
 
 from __future__ import annotations
@@ -35,6 +35,12 @@ def _get_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int32, i64p,
             i32p, i64p, i64p,
             i32p, i64p, i64p,
+            ctypes.c_char_p, ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),
+        ]
+        lib.cs_resolve_wire.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, i64p,
+            i32p, i32p, i64p,
             ctypes.c_char_p, ctypes.c_int64,
             np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS"),
         ]
@@ -102,6 +108,16 @@ class CppConflictSet:
             r_off, np.asarray(r_offs, np.int64), np.asarray(r_lens, np.int64),
             w_off, np.asarray(w_offs, np.int64), np.asarray(w_lens, np.int64),
             b"".join(blob_parts), commit_version, verdicts)
+        return verdicts.tolist()
+
+    def resolve_wire(self, w, commit_version: int) -> list[int]:
+        """Resolve a serialized WireBatch directly — zero Python walk;
+        the baseline consumes the proxy wire form like the reference's
+        resolver consumes its serialized request arena."""
+        verdicts = np.empty(w.count, np.int8)
+        self._lib.cs_resolve_wire(self._h, w.count, w.snapshots, w.nr,
+                                  w.nw, w.offs, w.blob, commit_version,
+                                  verdicts)
         return verdicts.tolist()
 
     # uniform backend interface (ops/backends.py)

@@ -1,9 +1,8 @@
 """The resolver's conflict-detection core on PyTorch and the H100.
 
-Port of foundationdb_tpu/ops/conflict_jax.py (the lanes path; the
-endpoint dictionary comes later).  Same semantics slab for slab, so the
-verdicts AND the ring state are bit-identical to the JAX reference and
-to the numpy twin (ops/conflict_np.py):
+Port of foundationdb_tpu/ops/conflict_jax.py.  Same semantics slab for
+slab, so the verdicts AND the ring state are bit-identical to the JAX
+reference and to the numpy twin (ops/conflict_np.py):
 
 - **Canonical oldest-first ring.**  History is ``hb/he: [L, C]`` lane
   planes plus ``hver: [C]`` slot versions; appending a batch's slab of S
@@ -33,6 +32,15 @@ to the numpy twin (ops/conflict_np.py):
   behind RESOLVER_RING_INPLACE (into a spare plane of a ping-pong
   pair).  The group's set-up and final append and the verdict bit-pack
   are torch ops, once per group.
+- **The endpoint dictionary** (CONFLICT_DICT_SLOTS): the card keeps
+  every recently seen range endpoint's lane row in ``dct [D, L]``
+  (int32, already mapped; slot 0 is the padding sentinel), and the host
+  ships 4-byte slot ids plus rows for endpoints not yet resident.  A
+  group's updates are scattered (``index_copy_``) and its ids gathered
+  (``index_select``) into contiguous ``[K, B, R, L]`` rows before
+  ``resolve_many_core``: a handful of torch ops per group, after which
+  every batch is still the same two launches.  The reference keeps the
+  dictionary as ``[L, D]`` u32; ``dict_to_numpy`` converts.
 
 Every handle a submit returns supports ``np.asarray``: the device→host
 copy starts at dispatch into pinned memory and ``__array__`` waits on
@@ -49,11 +57,12 @@ import torch
 from . import kernels, keycode
 from .batch import COMMITTED, TOO_OLD, EncodedBatch
 from .kernels import (SENTINEL_MAPPED, _pack_bits32, commit_chain,
-                      hist_check)
+                      hist_check, mapped)
 from .keycode import DEFAULT_WIDTH
 
 SENTINEL_LANE = 0xFFFFFFFF
 _SIGN = np.uint32(0x80000000)
+_SIGN32 = -(1 << 31)        # the same bit on an int32 tensor
 _INT64_MIN = -(1 << 63)
 
 
@@ -323,6 +332,120 @@ def resolve_many_packed(state: ConflictState, lanes, snaps,
                              spares=spares)
 
 
+# --------------------------------------------------------------------------
+# the endpoint dictionary (transfer compression)
+
+
+def _point_end(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Mapped lane rows of k+'\\0' derived from k's: identical data lanes
+    (the appended NUL is already the zero padding), length lane + 1
+    clamped to the truncation marker; sentinels stay sentinels."""
+    ll = x[..., -1]
+    newll = torch.where(ll == SENTINEL_MAPPED, ll,
+                        ll.clamp(max=mapped(width + 1) - 1) + 1)
+    return torch.cat([x[..., :-1], newll[..., None]], dim=-1)
+
+
+def dict_update_step(dct: torch.Tensor, upd_slots: torch.Tensor,
+                     upd_lanes: torch.Tensor) -> torch.Tensor:
+    """``dct[upd_slots[u]] = upd_lanes[:, u]``, in place.  ``upd_slots``
+    [U] int32 slot ids, ``upd_lanes`` [L, U] int32 holding the reference's
+    u32 lane bits (mapped here, once per update).  Padding updates all
+    write sentinel lanes to slot 0, so which duplicate lands does not
+    matter; real slots are unique within a group."""
+    dct.index_copy_(0, upd_slots.long(), (upd_lanes ^ _SIGN32).t())
+    return dct
+
+
+def _dict_rows(dct: torch.Tensor, ids: torch.Tensor, shape, width: int,
+               compact: bool):
+    """(rb, re, wb, we) [K, B, R, L] gathered from the dictionary by one
+    ``index_select``: ``ids`` = rb | re | wb | we slot ids, or with
+    ``compact`` rb | wb, the end rows derived by ``_point_end``."""
+    K, B, R, L = shape
+    nseg = 2 if compact else 4
+    rows = dct.index_select(0, ids[:nseg * K * B * R]).view(nseg, K, B, R, L)
+    if compact:
+        ends = _point_end(rows, width)
+        return rows[0], ends[0], rows[1], ends[1]
+    return rows[0], rows[1], rows[2], rows[3]
+
+
+def resolve_many_ids(state: ConflictState, dct: torch.Tensor, ids, upd_slots,
+                     upd_lanes, snaps, commit_versions: list[int], *, shape,
+                     width: int = DEFAULT_WIDTH, window: int = 0,
+                     compact: bool = False, points: bool = False,
+                     ring_inplace: bool = False, spares: list | None = None):
+    """resolve_many_core on dictionary-compressed inputs; returns (state,
+    dct, verdicts) with ``dct`` updated in place.
+
+    ``ids`` [4*K*B*R] int32 = rb | re | wb | we slot ids (or with
+    ``compact`` — an all-point group — [2*K*B*R] = rb | wb); updates
+    apply before the gathers, and the host never evicts a slot the
+    group references, so the rows are bit-identical to the lanes path's.
+    ``snaps`` [K*B] int64; commit versions on the host."""
+    if upd_slots.numel():
+        dict_update_step(dct, upd_slots, upd_lanes)
+    rb, re, wb, we = _dict_rows(dct, ids, shape, width, compact)
+    K, B = shape[:2]
+    st, verdicts = resolve_many_core(
+        state, rb, re, wb, we, snaps.view(K, B), commit_versions,
+        width=width, window=window, points=points,
+        ring_inplace=ring_inplace, spares=spares)
+    return st, dct, verdicts
+
+
+def fused_offsets(shape, compact: bool) -> tuple[int, int, int]:
+    """(off_pi, npi, off_upd) of the fused buffer (see resolve_many_fused)."""
+    K, B, R = shape[:3]
+    nids = (2 if compact else 4) * K * B * R
+    off_pi = (nids + 1) // 2 * 2
+    npi = 2 * (K * B + K)
+    return off_pi, npi, off_pi + npi
+
+
+def resolve_many_fused(state: ConflictState, dct: torch.Tensor,
+                       fused: torch.Tensor, commit_versions: list[int], *,
+                       shape, width: int = DEFAULT_WIDTH, window: int = 0,
+                       compact: bool = False, U: int = 0,
+                       points: bool = False, ring_inplace: bool = False,
+                       spares: list | None = None):
+    """resolve_many_ids on ONE int32 buffer, the layout the native group
+    encoder writes (native/keycodec.cpp kc_encode_group_fused):
+
+        [0, nids)                  ids; nids = (compact?2:4)*K*B*R
+        [off_pi, off_pi+npi)       snapshots [K*B] + versions [K] as
+                                   little-endian u32 pairs
+        [off_upd, ...)             upd_slots [U] | upd_lanes [L, U]
+
+    ``U`` is the bucketed update count (0 skips the scatter: a warm
+    dictionary).  The versions also ride in the buffer; the loop takes
+    the host's ``commit_versions``, which the caller checks equal."""
+    K, B, R, L = shape
+    off_pi, _, off_upd = fused_offsets(shape, compact)
+    if U:
+        dict_update_step(dct, fused[off_upd:off_upd + U],
+                         fused[off_upd + U:off_upd + U + L * U].view(L, U))
+    snaps = fused[off_pi:off_pi + 2 * K * B].view(torch.int64).view(K, B)
+    rb, re, wb, we = _dict_rows(dct, fused, shape, width, compact)
+    st, verdicts = resolve_many_core(
+        state, rb, re, wb, we, snaps, commit_versions, width=width,
+        window=window, points=points, ring_inplace=ring_inplace,
+        spares=spares)
+    return st, dct, verdicts
+
+
+def dict_from_numpy(dct: np.ndarray, device) -> torch.Tensor:
+    """The reference's dictionary ([L, D] u32) -> the port's [D, L] mapped."""
+    rows = np.ascontiguousarray(np.asarray(dct, dtype=np.uint32).T)
+    return torch.from_numpy(map_lanes(rows)).to(torch.device(device))
+
+
+def dict_to_numpy(dct: torch.Tensor) -> np.ndarray:
+    """The port's [D, L] mapped dictionary -> the reference's [L, D] u32."""
+    return np.ascontiguousarray(unmap_lanes(dct.cpu().numpy()).T)
+
+
 def set_oldest_step(state: ConflictState, v: int) -> ConflictState:
     """setOldestVersion analog: only the too-old floor moves (a device op
     on the same stream, no sync)."""
@@ -418,8 +541,10 @@ class PackedVerdicts:
 # next bucket with padding batches (commit_version=-1, sentinel slabs)
 GROUP_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
-# dictionary update buckets, kept beside GROUP_BUCKETS for the
-# dictionary path of the next slice
+# update-count buckets of the dictionary path: the ids path ships at
+# most the last (more goes through apply_dict_updates); the fused
+# buffer's update block is padded to one of FUSED_UPD_BUCKETS, 0 for a
+# warm dictionary, so its layout is the reference's
 UPD_BUCKETS = (1024, 4096, 16384, 32768)
 FUSED_UPD_BUCKETS = (0, 256, 1024, 4096, 16384, 32768)
 
@@ -443,6 +568,59 @@ def _eb_is_point(eb: EncodedBatch, width: int) -> bool:
 _FIELDS = ("read_begin", "read_end", "write_begin", "write_end")
 
 
+class StagingRing:
+    """``n`` host buffers handed out in turn for uploads that run while
+    the host goes on encoding.
+
+    With ``pinned`` the buffers are page-locked, so a ``non_blocking``
+    copy to the card is truly asynchronous: ``upload`` records a CUDA
+    event after the copy that reads a buffer, and ``take`` waits on that
+    event before it hands the buffer out again, so the encoder never
+    rewrites bytes the card is still reading.  Unpinned (the CPU), the
+    copy is done before ``upload`` returns."""
+
+    def __init__(self, n: int = 8, pinned: bool = False) -> None:
+        self.n = n
+        self.pinned = pinned
+        self._bufs: list[torch.Tensor] = []
+        self._events: list = []
+        self._i = 0
+
+    def take(self, words: int) -> np.ndarray:
+        """The next buffer of at least ``words`` u32 words, free to write."""
+        if not self._bufs or self._bufs[0].numel() < words:
+            self._bufs = [torch.zeros(words, dtype=torch.int32,
+                                      pin_memory=self.pinned)
+                          for _ in range(self.n)]
+            # int64 views of the buffer's even offsets need 8-byte
+            # alignment; the allocators give far more
+            assert all(b.data_ptr() % 8 == 0 for b in self._bufs)
+            self._events = [None] * self.n
+        self._i = (self._i + 1) % self.n
+        ev = self._events[self._i]
+        if ev is not None:
+            ev.synchronize()
+            self._events[self._i] = None
+        return self._bufs[self._i].numpy().view(np.uint32)
+
+    def upload(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``arr`` (a prefix of a buffer from ``take``, or any u32 array)
+        as an int32 tensor on ``device``."""
+        src = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
+        if device.type != "cuda":
+            return src.clone()
+        owner = next((i for i, b in enumerate(self._bufs)
+                      if b.data_ptr() == arr.ctypes.data), None)
+        if owner is None:
+            return src.to(device)       # pageable: staged before return
+        out = self._bufs[owner][:arr.size].to(device, non_blocking=True)
+        assert out.data_ptr() % 8 == 0
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[owner] = ev
+        return out
+
+
 class TorchConflictSet:
     """Drop-in peer of NumpyConflictSet backed by the hand kernels.
 
@@ -453,14 +631,21 @@ class TorchConflictSet:
 
     def __init__(self, capacity: int, width: int = DEFAULT_WIDTH,
                  oldest_version: int = 0, device=None, window: int = 4096,
-                 ring_inplace: bool = False, pack_verdicts: bool = False):
+                 dict_slots: int = 0, ring_inplace: bool = False,
+                 pack_verdicts: bool = False):
         self.device = default_device(device)
         self.capacity = capacity
         self.width = width
         self.window = window
+        self.dict_slots = dict_slots
         self.ring_inplace = ring_inplace
         self.pack = pack_verdicts
         self.state: ConflictState | None = None
+        self._dct: torch.Tensor | None = None   # [D, L] lane dictionary
+        # the fused path's host buffers: pinned, and fenced by the copy
+        # that last read them, on a CUDA device
+        self.staging = StagingRing(pinned=self.device.type == "cuda")
+        self.h2d_bytes = 0          # host-to-device bytes of every upload
         self._init_floor = oldest_version
         self._slab: int | None = None
         self._spares: list = [None, None]   # ping-pong planes (hb, he)
@@ -491,6 +676,24 @@ class TorchConflictSet:
         self.state = init_state(self.capacity, self.width, self._init_floor,
                                 self.device)
 
+    def _ensure_dict(self) -> torch.Tensor:
+        if self._dct is None:
+            if not self.dict_slots:
+                raise RuntimeError("dictionary disabled")
+            self._dct = torch.full(
+                (self.dict_slots, keycode.nlanes(self.width)),
+                SENTINEL_MAPPED, dtype=torch.int32, device=self.device)
+        return self._dct
+
+    def load_dict(self, dct: np.ndarray) -> None:
+        """Install a carried dictionary (the reference's [L, D] u32)."""
+        self._dct = dict_from_numpy(dct, self.device)
+        self.dict_slots = self._dct.shape[0]
+
+    def dict_to_numpy(self) -> np.ndarray:
+        """The dictionary in the reference's layout, [L, D] u32."""
+        return dict_to_numpy(self._ensure_dict())
+
     def load_state(self, hb: np.ndarray, he: np.ndarray, hver: np.ndarray,
                    floor, ring_all_point: bool = False) -> None:
         """Install a carried ring (the reference's numpy layout, see
@@ -503,7 +706,10 @@ class TorchConflictSet:
         self._ring_all_point = ring_all_point
 
     def reset_ring(self, oldest_version: int = 0) -> None:
-        """Clear the conflict history ring."""
+        """Clear the conflict history ring but KEEP the lane dictionary:
+        it is pure transfer compression (verdicts never depend on it), so
+        a restarted window or a bench's next pass need not re-ship every
+        endpoint."""
         if self.state is None:
             self._init_floor = oldest_version
             return
@@ -528,6 +734,18 @@ class TorchConflictSet:
         return torch.empty(n, dtype=dtype,
                            pin_memory=self.device.type == "cuda")
 
+    def _put(self, arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """``arr`` (u32 viewed as int32, or int64) on the device, copied
+        through a fresh host buffer, so the caller may rewrite ``arr`` at
+        once: the encoder clears its update buffers for the next group
+        while this copy may still be in flight (a pinned block goes back
+        to the caching host allocator only after the copy has read it)."""
+        h = self._host(arr.size, dtype)
+        hn = h.numpy()
+        hn[:] = np.asarray(arr).reshape(-1).view(hn.dtype)
+        self.h2d_bytes += hn.nbytes
+        return h.to(self.device, non_blocking=self.device.type == "cuda")
+
     def _upload(self, ebs: list[EncodedBatch], K: int):
         """The group's lanes (mapped) and snapshots in two host buffers,
         pinned for a CUDA device, copied without blocking the host."""
@@ -548,6 +766,7 @@ class TorchConflictSet:
         for i, e in enumerate(ebs):
             s[i * B:(i + 1) * B] = e.read_snapshot
         nb = self.device.type == "cuda"
+        self.h2d_bytes += 4 * lanes.numel() + 8 * snaps.numel()
         return (lanes.to(self.device, non_blocking=nb),
                 snaps.to(self.device, non_blocking=nb))
 
@@ -606,8 +825,109 @@ class TorchConflictSet:
             ring_inplace=self.ring_inplace, spares=self._spares)
         return self._finish_submit(verdicts, K, B)
 
-    def apply_dict_updates(self, upd_slots, upd_lanes, n_upd: int) -> None:
-        """No-op: this set ships lanes (no endpoint dictionary yet)."""
+    def _dict_gate(self, compact: bool) -> bool:
+        """The equality-rule gate of a dictionary dispatch: ``compact``
+        proves the GROUP all-point (the native encoder's byte-level
+        test); the rule also needs an all-point RING."""
+        use_points = compact and self._ring_all_point
+        self._ring_all_point = self._ring_all_point and compact
+        return use_points
+
+    def resolve_group_submit_dict(self, ibs: list, commit_versions: list[int],
+                                  upd_slots: np.ndarray,
+                                  upd_lanes: np.ndarray, n_upd: int):
+        """Dictionary-compressed group dispatch from per-batch IdBatches;
+        see resolve_group_submit_ids for the packed fast path."""
+        if len(ibs) != len(commit_versions) or not ibs:
+            raise ValueError("one commit version per batch, at least one")
+        B, R = ibs[0].read_begin.shape
+        k = len(ibs)
+        K = next(b for b in GROUP_BUCKETS if b >= k)
+        n = K * B * R
+        ids = np.zeros(4 * n, dtype=np.uint32)      # 0 = sentinel slot
+        for f, field in enumerate(_FIELDS):
+            dst = ids[f * n:f * n + k * B * R].reshape(k, B, R)
+            for i, e in enumerate(ibs):
+                dst[i] = getattr(e, field)
+        snaps = np.full((K, B), -1, dtype=np.int64)
+        for i, e in enumerate(ibs):
+            snaps[i] = e.read_snapshot
+        # slot ids carry no pointness proof, so the interval rule runs
+        # and the ring's all-point flag clears (compact=False)
+        return self.resolve_group_submit_ids(ids, snaps, (K, B, R),
+                                             commit_versions, upd_slots,
+                                             upd_lanes, n_upd)
+
+    def resolve_group_submit_ids(self, ids: np.ndarray, snaps: np.ndarray,
+                                 shape: tuple, commit_versions: list[int],
+                                 upd_slots: np.ndarray,
+                                 upd_lanes: np.ndarray, n_upd: int,
+                                 compact: bool = False):
+        """Dictionary-compressed group dispatch: u32 ids + lane updates
+        instead of full lane arrays, four uploads.  Same [K, B] verdict
+        contract as ``resolve_group_submit`` and bit-identical verdicts
+        and ring state.  ``ids`` is the packed [4*K*B*R] buffer (0 =
+        sentinel), ``snaps`` [K, B] with -1 padding."""
+        K, B, R = shape
+        self._ensure_state(B, R)
+        dct = self._ensure_dict()
+        L = keycode.nlanes(self.width)
+        if n_upd > UPD_BUCKETS[-1]:
+            raise ValueError(f"{n_upd} updates exceed {UPD_BUCKETS[-1]}")
+        cvs = list(commit_versions) + [-1] * (K - len(commit_versions))
+        use_points = self._dict_gate(compact)
+        self.state, self._dct, verdicts = resolve_many_ids(
+            self.state, dct, self._put(ids, torch.int32),
+            self._put(upd_slots[:n_upd], torch.int32),
+            self._put(upd_lanes[:, :n_upd], torch.int32).view(L, n_upd),
+            self._put(snaps, torch.int64), cvs, shape=(K, B, R, L),
+            width=self.width, window=self.window, compact=compact,
+            points=use_points, ring_inplace=self.ring_inplace,
+            spares=self._spares)
+        return self._finish_submit(verdicts, K, B)
+
+    def resolve_group_submit_fused(self, fused: np.ndarray, shape: tuple,
+                                   compact: bool, U: int,
+                                   commit_versions: list[int]):
+        """Single-upload group dispatch: ``fused`` is the complete layout
+        written by the native group encoder plus the update block (see
+        resolve_many_fused), in a buffer of ``self.staging`` (any u32
+        array works, copied before this returns).  ``commit_versions``
+        must equal the buffer's copy of them."""
+        K, B, R = shape
+        self._ensure_state(B, R)
+        dct = self._ensure_dict()
+        L = keycode.nlanes(self.width)
+        cvs = list(commit_versions) + [-1] * (K - len(commit_versions))
+        off_pi, npi, _ = fused_offsets(shape, compact)
+        if not np.array_equal(
+                fused[off_pi + 2 * K * B:off_pi + npi].view(np.int64), cvs):
+            raise ValueError("commit versions differ from the fused buffer's")
+        use_points = self._dict_gate(compact)
+        dev = self.staging.upload(fused, self.device)
+        self.h2d_bytes += fused.nbytes
+        self.state, self._dct, verdicts = resolve_many_fused(
+            self.state, dct, dev, cvs, shape=(K, B, R, L), width=self.width,
+            window=self.window, compact=compact, U=U, points=use_points,
+            ring_inplace=self.ring_inplace, spares=self._spares)
+        return self._finish_submit(verdicts, K, B)
+
+    def apply_dict_updates(self, upd_slots: np.ndarray,
+                           upd_lanes: np.ndarray, n_upd: int) -> None:
+        """Ship updates without a resolve — used when a group falls back
+        to the lanes path after its encoder already inserted endpoints
+        (the device mirror must not go stale).  Chunked, so any update
+        count is accepted."""
+        if not self.dict_slots or n_upd == 0:
+            return
+        dct = self._ensure_dict()
+        cap = UPD_BUCKETS[-1]
+        for start in range(0, n_upd, cap):
+            m = min(n_upd - start, cap)
+            dict_update_step(
+                dct, self._put(upd_slots[start:start + m], torch.int32),
+                self._put(upd_lanes[:, start:start + m], torch.int32)
+                .view(upd_lanes.shape[0], m))
 
     def resolve_encoded(self, eb: EncodedBatch,
                         commit_version: int) -> np.ndarray:

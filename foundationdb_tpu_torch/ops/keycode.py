@@ -52,19 +52,91 @@ def encode_key(key: bytes, width: int = DEFAULT_WIDTH) -> np.ndarray:
     return out
 
 
+_kc_lib = None
+
+
+def _keycodec():
+    """The native codec (native/keycodec.cpp), built with g++ at first
+    use.  There is no numpy fallback: a codec that does not build raises
+    with the compiler's message."""
+    global _kc_lib
+    if _kc_lib is None:
+        import ctypes
+
+        from ..native import load_library
+
+        lib = load_library("keycodec")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        i64 = ctypes.c_int64
+        lib.kc_encode.argtypes = [ctypes.c_char_p, i64p, i64, i64, u32p]
+        lib.kc_encode.restype = None
+        lib.kc_encode_batch.argtypes = [
+            ctypes.c_char_p, i64p, i32p, i32p, i64, i64, i64, i64,
+            u32p, u32p, u32p, u32p]
+        lib.kc_encode_batch.restype = None
+        lib.kc_dict_new.argtypes = [i64]
+        lib.kc_dict_new.restype = ctypes.c_void_p
+        lib.kc_dict_free.argtypes = [ctypes.c_void_p]
+        lib.kc_dict_free.restype = None
+        lib.kc_dict_group.argtypes = [ctypes.c_void_p]
+        lib.kc_dict_group.restype = None
+        lib.kc_dict_live.argtypes = [ctypes.c_void_p]
+        lib.kc_dict_live.restype = i64
+        lib.kc_encode_batch_ids.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, i64p, i32p, i32p,
+            i64, i64, i64, i64, u32p, u32p, u32p, u32p,
+            u32p, u32p, i64, i64]
+        lib.kc_encode_batch_ids.restype = i64
+        lib.kc_encode_group_ids2.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, i64p, i32p, i32p, i32p,
+            i64, i64, i64, i64, i64, u32p, u32p, u32p, i64, i64p]
+        lib.kc_encode_group_ids2.restype = i64
+        pvp = ctypes.POINTER(ctypes.c_void_p)
+        lib.kc_encode_group_fused.argtypes = [
+            ctypes.c_void_p,
+            pvp,                         # blobs: array of byte ptrs
+            pvp,                         # offs_list
+            pvp, pvp,                    # nr_list, nw_list
+            pvp,                         # snaps_list
+            i32p,                        # counts
+            i64p,                        # versions
+            i64, i64, i64, i64, i64,
+            u32p, u32p, u32p, i64, i64p, i64p]
+        lib.kc_encode_group_fused.restype = i64
+        _kc_lib = lib
+    return _kc_lib
+
+
+def _blob(keys: list[bytes]) -> tuple[bytes, np.ndarray, np.ndarray]:
+    """(joined bytes, lengths [n], cumulative offsets [n+1]) of keys."""
+    n = len(keys)
+    lens = np.fromiter((len(k) for k in keys), dtype=np.int64, count=n)
+    offs = np.empty(n + 1, dtype=np.int64)
+    offs[0] = 0
+    np.cumsum(lens, out=offs[1:])
+    return b"".join(keys), lens, offs
+
+
 def encode_keys(keys: list[bytes], width: int = DEFAULT_WIDTH) -> np.ndarray:
-    """Vectorized batch encode → [N, nlanes] uint32 by one numpy gather
-    (a per-key Python loop cost ~2µs/key, which dominated the whole
-    resolve pipeline at mako scale)."""
+    """Batch encode → [N, nlanes] uint32: one join and one native call."""
+    n = len(keys)
+    out = np.empty((n, nlanes(width)), dtype=np.uint32)
+    if n:
+        flat_b, _, offs = _blob(keys)
+        _keycodec().kc_encode(flat_b, offs, n, width, out)
+    return out
+
+
+def encode_keys_plain(keys: list[bytes],
+                      width: int = DEFAULT_WIDTH) -> np.ndarray:
+    """The codec's plain version: ``encode_keys`` by one numpy gather."""
     n = len(keys)
     L = nlanes(width)
     if n == 0:
         return np.zeros((0, L), dtype=np.uint32)
-    lens = np.fromiter((len(k) for k in keys), dtype=np.int64, count=n)
-    flat_b = b"".join(keys)
-    offs = np.empty(n + 1, dtype=np.int64)
-    offs[0] = 0
-    np.cumsum(lens, out=offs[1:])
+    flat_b, lens, offs = _blob(keys)
     flat = np.frombuffer(flat_b, dtype=np.uint8)
     starts = offs[:-1]
     plens = np.minimum(lens, width)
@@ -72,7 +144,7 @@ def encode_keys(keys: list[bytes], width: int = DEFAULT_WIDTH) -> np.ndarray:
     cols = np.arange(width)[None, :]
     mask = cols < plens[:, None]
     # clip keeps the flat index in range for masked-out (padding) cells
-    src = np.minimum(starts[:, None] + cols, len(flat) - 1)
+    src = np.minimum(starts[:, None] + cols, max(len(flat) - 1, 0))
     buf[mask] = flat[src[mask]]
     lanes = buf.reshape(n, width // 4, 4).astype(np.uint32)
     packed = (lanes[:, :, 0] << 24) | (lanes[:, :, 1] << 16) | (lanes[:, :, 2] << 8) | lanes[:, :, 3]

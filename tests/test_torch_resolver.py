@@ -4,7 +4,8 @@ The port's resolver role (``cuda`` backend kind on a CPU device, so the
 kernels' plain versions run) and the JAX package's (``tpu`` kind on the
 CPU, lanes path) answer the same seeded ResolveBatchRequest streams
 submitted concurrently; per-batch verdicts and abort words must be
-identical, under asyncio and under each package's own SimEventLoop.
+identical, under asyncio and under each package's own SimEventLoop, with
+the endpoint dictionary off and on.
 """
 
 import ast
@@ -90,13 +91,14 @@ async def drive(mod, knobs, batches, versions, device):
             for p, v, t in zip(prev, versions, batches)]
     replies = await asyncio.gather(*(res.resolve(r) for r in reqs))
     await res.close()
-    return [(r.verdicts, r.abort_words) for r in replies]
+    return [(r.verdicts, r.abort_words) for r in replies], res.backend
 
 
-def run_pair(batches, versions, sim: bool):
-    ref_knobs = RefKnobs().override(RESOLVER_CONFLICT_BACKEND="tpu", **SHAPE)
+def run_pair(batches, versions, sim: bool, dict_slots: int = 0):
+    shape = dict(SHAPE, CONFLICT_DICT_SLOTS=dict_slots)
+    ref_knobs = RefKnobs().override(RESOLVER_CONFLICT_BACKEND="tpu", **shape)
     port_knobs = PortKnobs().override(RESOLVER_CONFLICT_BACKEND="cuda",
-                                      **SHAPE)
+                                      **shape)
     port_txns = [[port_batch.TxnRequest(t.read_ranges, t.write_ranges,
                                         t.read_snapshot) for t in b]
                  for b in batches]
@@ -108,12 +110,18 @@ def run_pair(batches, versions, sim: bool):
     return asyncio.run(ref_main), asyncio.run(port_main)
 
 
+# 16384 = 8*R*B*64, the smallest dictionary the backend accepts at SHAPE
+@pytest.mark.parametrize("dict_slots", [0, 16384])
 @pytest.mark.parametrize("sim", [False, True])
 @pytest.mark.parametrize("stream", ["mako", "ranges"])
-def test_resolver_matches_reference(stream, sim):
+def test_resolver_matches_reference(stream, sim, dict_slots):
     batches, versions = mako_stream() if stream == "mako" \
         else range_stream()
-    ref, port = run_pair(batches, versions, sim)
+    (ref, _), (port, backend) = run_pair(batches, versions, sim, dict_slots)
+    # the dictionary branch ran, and every group fit it
+    assert backend.dict_dispatches > 0 if dict_slots \
+        else backend._dict is None
+    assert backend.dict_fallbacks == 0
     assert len(ref) == len(port) == len(batches)
     for i, (a, b) in enumerate(zip(ref, port)):
         assert a == b, f"batch {i}"
