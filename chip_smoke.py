@@ -45,7 +45,21 @@ path on the card and exits non-zero on any failure:
    and the measured pass): the fused single-upload path, the ids path
    and the lanes path, each with verdicts equal to the C++ set's
    ``resolve_wire``, and txns/s for each and for the C++ set;
-10. one JSON line with each kernel's launches in phase 6's run, max
+10. the in-process commit path end to end: mako clients (100000 keys,
+   zipf 0.99, 2 reads + 2 writes a txn, 512 clients, 2 s warm-up then
+   8 s measured) through the port's Cluster at the reference's device
+   operating point (bench.e2e.OPERATING_POINT), on the ``cuda`` backend
+   and then the ``cpp`` backend: txns/s, latency percentiles, abort
+   rate and codes, the commit path's stage breakdown, the resolver's
+   fusion, and the K1/K3 launches (equal, and nonzero on cuda); then a
+   shorter cuda pass under torch.profiler for the card's idle share;
+   10b. every ResolveBatchRequest of the cuda run, recorded by wrapping
+   Resolver.resolve here, replayed in version order through a fresh
+   ``cpp`` Resolver: every verdict must be equal;
+   10c. serializability at the client: 64 clients for 3 s each read a
+   zipf-chosen counter of 1000 and write it back incremented; the
+   counters' sum read back must equal the acknowledged commits;
+11. one JSON line with each kernel's launches in phase 6's run, max
    error, times and bound (K1 also its latency bound: B chain steps at
    the step time measured in phase 3); the last line is the result.
 
@@ -55,10 +69,12 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +86,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MAKO_BATCHES = 2048
 WIRE_BATCHES = 4096
 B, R, WIDTH = 64, 8, 32
+E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 8.0
 
 
 def fail(msg: str) -> None:
@@ -519,6 +536,143 @@ def same_state(a, b) -> bool:
         and a[3] == b[3]
 
 
+# --------------------------------------------------------------------------
+# phase 10: the commit path end to end
+
+
+def e2e_knobs(kind: str):
+    from foundationdb_tpu_torch.bench.e2e import OPERATING_POINT
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    return Knobs().override(RESOLVER_CONFLICT_BACKEND=kind,
+                            **OPERATING_POINT)
+
+
+def e2e_run(kind: str, dev, record: list | None = None,
+            warmup_s: float = E2E_WARMUP_S, seconds: float = E2E_SECONDS):
+    """bench.e2e.run_e2e at the operating point.  With ``record``, every
+    (ResolveBatchRequest, reply) the cluster's resolver answers is
+    appended to it, by wrapping Resolver.resolve for the run."""
+    from foundationdb_tpu_torch.bench.e2e import run_e2e
+    from foundationdb_tpu_torch.core.resolver import Resolver
+    orig = Resolver.resolve
+
+    async def recording(self, req):
+        reply = await orig(self, req)
+        record.append((req, reply))
+        return reply
+
+    if record is not None:
+        Resolver.resolve = recording
+    try:
+        return asyncio.run(run_e2e(e2e_knobs(kind), duration_s=seconds,
+                                   n_clients=E2E_CLIENTS, device=dev,
+                                   warmup_s=warmup_s))
+    finally:
+        Resolver.resolve = orig
+
+
+def e2e_report(kind: str, r: dict, got: dict) -> None:
+    st = r["stages"]
+    dv = st.get("resolver_device", {})
+    say(f"e2e {kind}: {r['committed']} committed in {r['elapsed_s']:.3f} s "
+        f"= {r['tps']:.1f} txns/s, {r['n_clients']} clients; latency p50 "
+        f"{r['p50_ms']:.3f} ms p95 {r['p95_ms']:.3f} p99 {r['p99_ms']:.3f}; "
+        f"abort rate {r['abort_rate']:.6f} codes {r['abort_codes']}; "
+        f"resolver group_mean {dv.get('group_mean')} dispatch_us_per_batch "
+        f"{dv.get('dispatch_us_per_batch')} fused groups "
+        f"{st['fused_dispatches']}; launches={got}")
+    for role in ("grv", "proxy", "resolver"):
+        say(f"e2e {kind} stages {role}: {json.dumps(st[role])}")
+    say(f"e2e {kind} client phases: {json.dumps(st['client'])}")
+    commit = st["client"]["commit_phase"]["p50_ms"]
+    res = st["proxy"].get("resolve", {}).get("p50_ms")
+    if commit and res is not None:
+        say(f"e2e {kind}: the proxy's resolve stage p50 {res} ms is "
+            f"{res / commit:.4f} of the client's commit-phase p50 "
+            f"{commit:.3f} ms")
+    stages = {f"{role}.{k}": v["mean_ms"] for role in ("grv", "proxy")
+              for k, v in st[role].items()}
+    lead = max(stages, key=stages.get)
+    say(f"e2e {kind}: the largest stage mean is {lead} ({stages[lead]} ms)")
+
+
+def e2e_idle_share(dev) -> dict:
+    """A shorter cuda run under torch.profiler (CUDA activity): the
+    union of the device kernels' intervals over the run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundationdb_tpu_torch.bench.profile_resolver import (_device_events,
+                                                               busy_us)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = e2e_run("cuda", dev, warmup_s=1.0, seconds=2.0)
+    wall = time.perf_counter() - t0
+    kern = _device_events(prof)
+    busy = busy_us(kern) / 1e6
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "kernels": len(kern), "tps": r["tps"]}
+
+
+def replay_cpp(record: list) -> tuple[int, int]:
+    """The recorded requests, in version order, through a fresh Resolver
+    with the cpp backend at the same knobs: (verdicts compared,
+    mismatches)."""
+    from foundationdb_tpu_torch.core.resolver import Resolver
+
+    async def main():
+        res = Resolver(e2e_knobs("cpp"))
+        n = bad = 0
+        for req, reply in sorted(record, key=lambda x: x[0].version):
+            got = (await res.resolve(req)).verdicts
+            n += len(got)
+            bad += sum(1 for a, b in zip(got, reply.verdicts) if a != b) \
+                + abs(len(got) - len(reply.verdicts))
+        await res.close()
+        return n, bad
+    return asyncio.run(main())
+
+
+def counter_run(dev, clients: int = 64, seconds: float = 3.0,
+                keys: int = 1000) -> dict:
+    """Clients read a zipf-chosen counter and write it back incremented
+    (a read and a set, not an atomic op) on the cuda backend; then one
+    fresh transaction reads every counter back."""
+    from foundationdb_tpu_torch.bench.workload import ZipfianGenerator
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    from foundationdb_tpu_torch.core.cluster import Cluster, ClusterConfig
+    from foundationdb_tpu_torch.runtime.errors import FdbError
+
+    async def main():
+        cluster = Cluster(ClusterConfig(), e2e_knobs("cuda"), device=dev)
+        cluster.start()
+        zipf = ZipfianGenerator(keys, 0.99, 3)
+        acked = 0
+        codes: dict[int, int] = {}
+        stop = time.perf_counter() + seconds
+
+        async def client():
+            nonlocal acked
+            tr = Transaction(cluster)
+            while time.perf_counter() < stop:
+                k = b"ctr/%06d" % int(zipf.sample(1)[0])
+                try:
+                    v = await tr.get(k)
+                    tr.set(k, b"%d" % (int(v or b"0") + 1))
+                    await tr.commit()
+                    acked += 1
+                except FdbError as e:
+                    codes[e.code] = codes.get(e.code, 0) + 1
+                tr.reset()
+
+        await asyncio.gather(*(client() for _ in range(clients)))
+        rows = await Transaction(cluster).get_range(b"ctr/", b"ctr0")
+        await cluster.stop()
+        return {"clients": clients, "seconds": seconds, "acked": acked,
+                "sum": sum(int(v) for _, v in rows), "keys": len(rows),
+                "codes": dict(sorted(codes.items()))}
+    return asyncio.run(main())
+
+
 def main() -> None:
     try:
         import torch
@@ -663,6 +817,20 @@ def main() -> None:
         fail("the dictionary run did not take the dictionary branch "
              f"every group: {m8['dict_dispatches']} groups, "
              f"{m8['dict_fallbacks']} fallbacks")
+    # B6, the dictionary's scatter and gather, for one group of 64 mako
+    # batches (B=64, R=8): device time, and the bound from the bytes the
+    # ops must move
+    from foundationdb_tpu_torch.bench import profile_fused as pf
+    from foundationdb_tpu_torch.ops.batch import wire_from_txns
+    b6 = pf.b6_device_us([wire_from_txns(t) for t in mb[:64]], mv[:64],
+                         (64, B, R), WIDTH)
+    for name, r in b6.items():
+        if "skipped" in r:
+            fail(f"B6 {name} group: {r}")
+        say(f"B6 dictionary ops, group of 64 (B={B}, R={R}), {name}: "
+            f"{r['kernels']} kernels, {r['device_us']:.3f} us, {r['U']} "
+            f"update slots ({r['n_upd']} real), {r['bytes']} bytes, "
+            f"bound_ms={r['bytes'] / HBM_BYTES_PER_S * 1e3:.8f} (bytes)")
 
     # 8. the smallest dictionary under range streams that make it evict.
     # Nearly every endpoint is new, 1152 a batch: groups of 16 batches
@@ -700,8 +868,6 @@ def main() -> None:
              "every group, or had no conflict")
 
     # 9. the wire path at the reference bench.py's configuration
-    from foundationdb_tpu_torch.bench import profile_fused as pf
-    from foundationdb_tpu_torch.ops.batch import wire_from_txns
     wb, wv = MakoWorkload(n_keys=1_000_000, key_width=WIDTH, seed=42) \
         .make_batches(WIRE_BATCHES, B)
     wires = [wire_from_txns(t) for t in wb]
@@ -730,11 +896,67 @@ def main() -> None:
             fail(f"wire path {path} did not take its branch: {r}, {got}")
     say(f"wire txns/s: {json.dumps(rates)}")
 
-    for got in (got4, got5, got6, got7, got8, got9, *gots):
+    # 10. the commit path end to end, cuda then cpp.  The earlier phases'
+    # batches, replies and backends go first: a full collection of their
+    # millions of objects stalls the event loop for most of a second.
+    # The roles' trace events go to a temporary file, as the reference
+    # bench routes them
+    del (mb, mv, ref, v4, rep4, rep5, rep5c, rep6, rep6c, rep7, rep8, v8,
+         rb5, rv5, rb6, rv6, rb9, rv9, keys9, rep9, rep9c, v9, v9c, wb, wv,
+         wires, want, r, be)
+    gc.collect()
+    from foundationdb_tpu_torch.runtime.trace import TraceLog, set_trace_log
+    trace_dir = tempfile.TemporaryDirectory()
+    set_trace_log(TraceLog(path=os.path.join(trace_dir.name, "e2e.jsonl")))
+    record: list = []
+    e2e = {}
+    for kind in ("cuda", "cpp"):
+        e2e[kind], got = count_run(lambda: e2e_run(
+            kind, dev, record if kind == "cuda" else None))
+        e2e_report(kind, e2e[kind], got)
+        if e2e[kind]["committed"] == 0:
+            fail(f"no transaction committed on the {kind} backend")
+        if got["hist_check"] != got["commit_chain"] or \
+                (kind == "cuda") != (got["commit_chain"] > 0):
+            fail(f"the {kind} commit path launched {got}")
+        if kind == "cuda":
+            got10 = got
+    say(f"e2e txns/s: cuda {e2e['cuda']['tps']:.1f} cpp "
+        f"{e2e['cpp']['tps']:.1f}")
+    idle = e2e_idle_share(dev)
+    say(f"e2e cuda profiled pass (1 s warm-up, 2 s measured): wall "
+        f"{idle['wall_s']:.3f} s, device busy {idle['busy_s']:.6f} s, idle "
+        f"share {idle['idle_share']:.6f}, {idle['kernels']} device kernels, "
+        f"{idle['tps']:.1f} txns/s")
+
+    # 10b. the cuda run's verdicts against a cpp replay of its requests
+    t0 = time.perf_counter()
+    n_cmp, mism10 = replay_cpp(record)
+    say(f"e2e replay: {len(record)} resolve batches, {n_cmp} verdicts "
+        f"compared against a cpp Resolver, mismatches={mism10} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if mism10 or n_cmp == 0:
+        fail("the cuda commit path's verdicts differ from the cpp replay")
+
+    # 10c. serializability at the client
+    ctr, got10c = count_run(lambda: counter_run(dev))
+    say(f"e2e counters: {ctr['clients']} clients, {ctr['seconds']} s, "
+        f"acknowledged commits {ctr['acked']}, counter sum {ctr['sum']} "
+        f"over {ctr['keys']} keys, aborts by code {ctr['codes']}, "
+        f"launches={got10c}")
+    if ctr["acked"] == 0 or ctr["sum"] != ctr["acked"] or \
+            set(ctr["codes"]) - {1007, 1020}:
+        fail("the counters' sum differs from the acknowledged commits "
+             "(a lost update), or a commit's outcome was unknown")
+
+    set_trace_log(TraceLog())
+    trace_dir.cleanup()
+
+    for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 10. the kernels line, then the result.  Its launches are those of the
+    # 11. the kernels line, then the result.  Its launches are those of the
     # mako run with RESOLVER_RING_INPLACE (phase 6), the one run that
     # takes all three kernels; each phase printed its own counts above.
     meta = {

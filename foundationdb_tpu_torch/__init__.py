@@ -5,15 +5,23 @@ same inputs and must give bit-identical verdicts and ring state.  It
 imports ``torch`` and numpy and nothing of ``jax`` or
 ``foundationdb_tpu``: the jax-free modules it needs are its own copies.
 
-Ported so far, the resolver's conflict-detection path:
+Ported so far, the resolver's conflict-detection path and the
+in-process commit path around it:
   runtime/   event loop, sim, knobs, trace, errors, RNG (copies)
   ops/       key encoding, batch format, the conflict core on torch
              (conflict_torch), its hand kernels (kernels + csrc/*.cu),
              the backend registry, the C++ exact baseline
   device/    the resolver's device commit pipeline
-  core/      the resolver role and the shared data types
-  native/    the C++ conflict set, built with g++ into _build/
-  bench/     the mako workload generator
+  core/      the transaction roles of an in-process Cluster: sequencer,
+             GRV and commit proxies, resolver, TLog, log system,
+             storage server, ratekeeper; the shared data types
+  storage/   the MVCC window and the in-memory engine (copies)
+  rpc/       the wire codec (copies; no transports yet)
+  client/    Database / Transaction with read-your-writes (copies)
+  native/    the C++ conflict set and key codec, built with g++ into
+             _build/
+  bench/     the mako workload generator, the end-to-end mako loop,
+             the resolver profiles
 
 Entry points run on the CUDA card unless the caller passes
 ``torch.device("cpu")``, where the kernels' plain versions run.

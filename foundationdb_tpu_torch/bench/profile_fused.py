@@ -164,7 +164,14 @@ def b6_device_us(wires, versions, shape, width: int = 32,
     (K, B, R): the scatter of its updates, then the gathers into
     [K, B, R, L] rows, on the fused buffer the native group encoder
     writes, with a dictionary of its own.  Cold: the group's endpoints
-    are new (U > 0); warm: the same group again (U = 0)."""
+    are new (U > 0); warm: the same group again (U = 0).
+
+    ``bytes`` is what the ops must move, each input read once and each
+    output written once: the n_upd real update slots and lane rows read
+    and the n_upd dictionary rows written (not the bucket's U padded
+    slots), the ids read, the distinct dictionary rows they name read,
+    and the four [K, B, R, L] int32 row tensors written."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,8 +215,12 @@ def b6_device_us(wires, versions, shape, width: int = 32,
             torch.cuda.synchronize()
         kern = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_ids = (2 if compact else 4) * K * B * R
+        distinct = int(np.unique(fused[:n_ids]).size)
+        nbytes = 4 * n_upd * (1 + 2 * L) + 4 * n_ids + 4 * L * distinct \
+            + 4 * 4 * K * B * R * L
         out[name] = {"U": U, "n_upd": n_upd, "compact": compact,
-                     "kernels": len(kern),
+                     "bytes": nbytes, "kernels": len(kern),
                      "device_us": sum(e.time_range.end - e.time_range.start
                                       for e in kern)}
     return out

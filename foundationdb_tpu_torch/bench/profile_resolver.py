@@ -12,7 +12,8 @@ all submitted concurrently, with the endpoint dictionary off
    per batch, and the groups that took the dictionary;
 2. under ``torch.profiler``, each mode: device time by kernel name, the
    device's busy time (the union of its kernel intervals) and idle share
-   of the wall time, and device kernels per batch;
+   of the wall time, device kernels per batch, and the host-side ops and
+   CUDA API calls with the most CPU time;
 3. under ``cProfile``, each mode: the host functions with the most own
    time, and ``resolve_many_core``'s cumulative host time per batch;
 4. the dictionary's indexing ops for one group of 64 batches (the
@@ -28,7 +29,12 @@ then drives the conflict set's fused group dispatch directly
 6. host µs per batch in ``resolve_many_core``: 4 groups of 64 batches
    (the pipeline's group size) enqueued back to back, timed on the host
    clock, then one sync (few enough that the card keeps up and the
-   launch queue never fills).
+   launch queue never fills);
+
+7. groups of one, the shape the in-process commit path gives the
+   resolver: 256 of the batches submitted one at a time, each awaited
+   before the next, dictionary off and on; plain (host µs per batch in
+   encode+dispatch), then steps 2 and 3 on the same loop.
 
 Prints one line per finding and a JSON summary last.  Needs a CUDA card.
 """
@@ -43,6 +49,7 @@ import sys
 import time
 
 BATCHES = 1024
+SERIAL_BATCHES = 256
 
 
 MODES = {"dict_off": 0, "dict_on": 1 << 21}
@@ -57,9 +64,10 @@ def knobs(dict_slots: int = 0):
         CONFLICT_DICT_SLOTS=dict_slots, RESOLVER_GROUP_BUCKET=8)
 
 
-def run(batches, versions, dict_slots: int = 0):
+def run(batches, versions, dict_slots: int = 0, serial: bool = False):
     """(seconds, pipeline metrics + host-to-device bytes and dictionary
-    dispatches) of one Resolver over the batches."""
+    dispatches) of one Resolver over the batches: all submitted at once,
+    or with ``serial`` one at a time, each awaited (groups of one)."""
     import torch
 
     from ..core.resolver import ResolveBatchRequest, Resolver
@@ -70,7 +78,11 @@ def run(batches, versions, dict_slots: int = 0):
         reqs = [ResolveBatchRequest(p, v, t)
                 for p, v, t in zip(prev, versions, batches)]
         t0 = time.perf_counter()
-        await asyncio.gather(*(res.resolve(r) for r in reqs))
+        if serial:
+            for r in reqs:
+                await res.resolve(r)
+        else:
+            await asyncio.gather(*(res.resolve(r) for r in reqs))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         m = res._pipeline.metrics()
@@ -167,14 +179,16 @@ def busy_us(events) -> float:
     return total
 
 
-def profiled(batches, versions, dict_slots: int, tag: str) -> dict:
+def profiled(batches, versions, dict_slots: int, tag: str,
+             serial: bool = False) -> dict:
     """Steps 2 and 3 for one mode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     out = {}
+    n = len(batches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pdt, _ = run(batches, versions, dict_slots)
+        pdt, _ = run(batches, versions, dict_slots, serial)
     kern = _device_events(prof)
     by_name: dict[str, list] = {}
     for e in kern:
@@ -185,7 +199,7 @@ def profiled(batches, versions, dict_slots: int, tag: str) -> dict:
     out.update(profiled_wall_s=pdt, device_busy_s=busy / 1e6,
                device_idle_share=1 - busy / 1e6 / pdt,
                device_kernel_launches=len(kern),
-               device_kernels_per_batch=len(kern) / BATCHES)
+               device_kernels_per_batch=len(kern) / n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     out["top_device"] = [{"name": k[:80], "count": c, "us": round(us, 1)}
                          for k, (c, us) in top]
@@ -194,10 +208,18 @@ def profiled(batches, versions, dict_slots: int, tag: str) -> dict:
           f"{len(kern)} device kernels")
     for k, (c, us) in top:
         print(f"  device {us / 1e3:10.3f} ms  {c:7d}x  {k[:100]}")
+    host_ops = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:10]
+    out["top_host_ops"] = [{"name": e.key[:80], "count": e.count,
+                            "self_cpu_us": e.self_cpu_time_total}
+                           for e in host_ops]
+    for e in host_ops:
+        print(f"  host op {e.self_cpu_time_total / 1e3:10.3f} ms self "
+              f"{e.count:7d}x  {e.key[:90]}")
 
     pr = cProfile.Profile()
     pr.enable()
-    cdt, _ = run(batches, versions, dict_slots)
+    cdt, _ = run(batches, versions, dict_slots, serial)
     pr.disable()
     st = pstats.Stats(pr)
     rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
@@ -213,9 +235,9 @@ def profiled(batches, versions, dict_slots: int, tag: str) -> dict:
             if fn == "resolve_many_core" and "conflict_torch" in f]
     if core:
         out["resolve_many_core_cprofile_us_per_batch"] = \
-            core[0][3] / BATCHES * 1e6
+            core[0][3] / n * 1e6
         print(f"  resolve_many_core: {core[0][3]:.3f} s cumulative, "
-              f"{core[0][3] / BATCHES * 1e6:.1f} us per batch")
+              f"{core[0][3] / n * 1e6:.1f} us per batch")
     return out
 
 
@@ -259,6 +281,17 @@ def main() -> int:
           f"{out['group_kernels_k8']} for a group of 8; host "
           f"{out['resolve_many_core_host_us_per_batch']:.1f} us per batch "
           "in resolve_many_core")
+
+    sb, sv = batches[:SERIAL_BATCHES], versions[:SERIAL_BATCHES]
+    for tag, slots in MODES.items():
+        dt, m = run(sb, sv, slots, serial=True)
+        r = {"wall_s": dt, "txns_per_s": SERIAL_BATCHES * 64 / dt,
+             "group_mean": m["device_group_mean"],
+             "dispatch_us_per_batch": m["device_dispatch_us_per_batch"]}
+        print(f"{tag} groups of one plain: {r}")
+        out[tag]["groups_of_one"] = {
+            "plain": r, **profiled(sb, sv, slots, f"{tag} groups of one",
+                                   serial=True)}
     print(json.dumps(out))
     return 0
 

@@ -154,6 +154,35 @@ def encode_keys_plain(keys: list[bytes],
     return out
 
 
+def prefix_u64(key: bytes) -> int:
+    """First 8 key bytes big-endian, zero-padded — lanes 0-1 of
+    ``encode_key`` fused into one uint64.  Monotone: a <= b implies
+    prefix_u64(a) <= prefix_u64(b), so a searchsorted over an array of
+    these narrows any exact bisect to the equal-prefix band."""
+    return int.from_bytes(key[:8].ljust(8, b"\x00"), "big")
+
+
+def encode_prefix_u64(keys: list[bytes]) -> np.ndarray:
+    """Vectorized ``prefix_u64`` over a sorted (or any) key list →
+    uint64[N].  Used by storage/key_index.py as the searchsorted fast
+    path for range bounds over large key indexes — the storage-side
+    cousin of the resolver's ``encode_keys`` lane packing."""
+    n = len(keys)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint64)
+    flat_b, lens, offs = _blob(keys)
+    flat = np.frombuffer(flat_b, dtype=np.uint8)
+    starts = offs[:-1]
+    plens = np.minimum(lens, 8)
+    buf = np.zeros((n, 8), dtype=np.uint8)
+    cols = np.arange(8)[None, :]
+    mask = cols < plens[:, None]
+    # clip keeps the flat index in range for masked-out (padding) cells
+    src = np.minimum(starts[:, None] + cols, max(len(flat) - 1, 0))
+    buf[mask] = flat[src[mask]]
+    return buf.view(">u8").ravel().astype(np.uint64)
+
+
 def lex_lt(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Strict lexicographic < over the last (lane) axis, broadcasting the rest."""
     L = a.shape[-1]

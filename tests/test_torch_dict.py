@@ -174,6 +174,25 @@ def test_codec_matches_reference_and_plain(width):
     assert port.count == ref.count == plain.count == B
 
 
+def test_prefix_u64_matches_reference():
+    """The storage index's u64 key prefixes, on seeded keys of every
+    length 0-40 (many shorter than the 8 prefix bytes), high bytes and
+    shared prefixes included."""
+    g = np.random.default_rng(8)
+    keys = [bytes(g.integers(0, 256, size=n, dtype=np.uint8))
+            for n in range(41) for _ in range(12)]
+    keys += [b"\xff" * n for n in range(10)] + [b"pre" + bytes([i])
+                                                for i in range(256)]
+    got = tkc.encode_prefix_u64(keys)
+    assert got.dtype == np.uint64
+    assert np.array_equal(got, rkc.encode_prefix_u64(keys))
+    assert [tkc.prefix_u64(k) for k in keys] == \
+        [rkc.prefix_u64(k) for k in keys] == [int(x) for x in got]
+    assert tkc.encode_prefix_u64([]).shape == (0,)
+    p = tkc.encode_prefix_u64(sorted(keys))
+    assert np.all(p[1:] >= p[:-1])          # monotone in key order
+
+
 def test_codec_that_does_not_build_raises_with_the_compiler_message(
         monkeypatch, tmp_path):
     bad = tmp_path / "broken.cpp"
