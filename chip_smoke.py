@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-from the repository root.  It drives foundationdb_tpu_torch's resolver
-path on the card and exits non-zero on any failure:
+from the repository root.  It drives foundationdb_tpu_torch's resolver,
+commit and storage paths on the card and exits non-zero on any failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. builds the hand kernels from csrc/*.cu (one nvcc per source, in
@@ -15,7 +15,10 @@ path on the card and exits non-zero on any failure:
    B = 64 and 100 under both rules, writing into a hot-buffer view; K2
    on the hot-buffer view; K3 under both rules on the resolver's own
    cold ring + hot buffer, with the inputs deciding the window (fast_ok)
-   and the full side, and on a lone ring;
+   and the full side, and on a lone ring; B8 (the read mirror's prefix
+   search) at N = 2**24 and 2**24 - 3 prefixes and 512 and 4096
+   probes, and on mirrors of 100001, 1 and 0 prefixes, with the
+   torch.searchsorted pair beside it;
 4. the port's Resolver at the reference's device operating point
    (B=64, R=8, 32-byte keys, ring 1<<17, window 8192, group bucket 8,
    pipeline and verdict bitmask on), the dictionary off, answers 2048
@@ -59,9 +62,31 @@ path on the card and exits non-zero on any failure:
    10c. serializability at the client: 64 clients for 3 s each read a
    zipf-chosen counter of 1000 and write it back incremented; the
    counters' sum read back must equal the acknowledged commits;
-11. one JSON line with each kernel's launches in phase 6's run, max
-   error, times and bound (K1 also its latency bound: B chain steps at
-   the step time measured in phase 3); the last line is the result.
+11. the multi-resolver (bench.multi_resolver): the sharded step at S = 1,
+   2, 4, 8 partitions (B=64, R=2, width 16, mako over 200000 keys, 256000
+   history slots split S ways, window 0), its first 32 batches against
+   the CPU plain path (verdicts and every partition's ring), 512 timed
+   batches with K3 = K1 = S x batches launches (K2 twice that), B9's device time
+   under the profiler, a profiled pass at S = 1 and 8; the dryrun's partition-contained stream at S = 8 against the
+   exact C++ set as one resolver; the live routed mesh at 1 and 4
+   resolvers on the cuda backend;
+12. durable storage: for the memory, lsm and btree engines, mako's
+   100000 keys loaded through a durable Cluster.create on a real file
+   system, made durable, the cluster re-created from disk and every key
+   read back in get_multi batches of 512, byte for byte; the memory and
+   lsm engines' read mirror must serve the read-back (B8 launches), with
+   no fallback but its cold start, and every B8 call of the read-back
+   must equal the plain version on its own mirror and probes;
+13. bench.device_plane's A/Bs: the sharded read mirror against one
+   directory, every served batch equal to the engine's and every B8
+   call equal to the plain version on its own tensors; the verdict
+   bitmask against the raw vectors and the in-place ring against the
+   rebuild, each pair's verdicts equal;
+14. one JSON line with each kernel's launches (the resolver kernels' in
+   phase 6's run, prefix_search's in phase 12's), max error, times and
+   bound (K1 also its latency bound: B chain steps at the step time
+   measured in phase 3; B8 its latency bound: one probe's search chain
+   at N = 2**24 measured in phase 3); the last line is the result.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -85,6 +110,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 MAKO_BATCHES = 2048
 WIRE_BATCHES = 4096
+SCALING_BATCHES = 512
+DURABLE_KEYS = 100_000
 B, R, WIDTH = 64, 8, 32
 E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 8.0
 
@@ -96,6 +123,12 @@ def fail(msg: str) -> None:
 
 def say(*a) -> None:
     print(*a, flush=True)
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def time_cuda(fn, reps: int = 20, rounds: int = 5) -> tuple[float, float]:
@@ -244,6 +277,33 @@ def _history(g, kc, dev, points: bool, C: int, W: int, S: int, Kg: int,
     off = k * S
     win = tuple(x[..., off + 1:off + 1 + W] for x in hot)
     return cold, hot, win, hot[2][off:off + 1]
+
+
+def prefix_cases(seed: int, N: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """B8's inputs: (prefixes u64 [N] sorted, probes u64 [n]).  Prefixes
+    span the whole u64 range (half of them at or above 2**63, where the
+    sign flip matters) with wide equal-prefix runs (keys sharing their
+    first 8 bytes, up to 2048 wide, N >> 13 of them); probes are a mix of present
+    prefixes (run values among them), random values, 0 and 2**64 - 1
+    (below and above every prefix when the extremes are absent)."""
+    g = np.random.default_rng(seed)
+    pfx = np.sort(g.integers(1, 2**64 - 1, size=N, dtype=np.uint64))
+    for i in g.integers(0, max(N, 1), size=min(N, max(1, N >> 13), 64)):
+        pfx[i:i + int(g.integers(2, min(2048, (N >> 4) + 2) + 1))] = pfx[i]
+    return pfx, prefix_probes(g, pfx, n)
+
+
+def prefix_probes(g, pfx: np.ndarray, n: int) -> np.ndarray:
+    """n probes u64 for the sorted prefixes ``pfx``: half present
+    prefixes, the rest random, with 0 and 2**64 - 1 among them."""
+    kind = g.random(n)
+    probes = g.integers(0, 2**64 - 1, size=n, dtype=np.uint64, endpoint=True)
+    if len(pfx):
+        hit = pfx[g.integers(0, len(pfx), size=n)]
+        probes = np.where(kind < 0.5, hit, probes)
+    probes[kind > 0.97] = 0
+    probes[kind < 0.03] = np.uint64(2**64 - 1)
+    return probes
 
 
 def kernel_phase(dev, report: dict) -> None:
@@ -447,6 +507,135 @@ def kernel_phase(dev, report: dict) -> None:
         want = K.hist_check_plain(rb, re, *cold, sn, WIDTH, points)
         note("hist_check", int((hit - want.to(torch.int32)).abs().max()))
     torch.cuda.synchronize()
+    prefix_search_phase(dev, note)
+
+
+def prefix_search_phase(dev, note) -> None:
+    """B8 at the read mirror's shapes: N = 2**24 prefixes (128 MiB, one
+    storage server's ~16.8M keys) and N = 2**24 - 3 (odd lengths in the
+    left search's halving), n = 512 (a get_multi batch) and 4096 probes,
+    32 seeded probe sets each, every set against the plain version
+    (tolerance 0), timed over the 32 in turn so the deep search levels
+    are not all in L2; a mirror of 100001 prefixes (phase 12's size), an
+    empty and a one-prefix mirror.  The latency bound is the search's
+    chain measured directly: one probe a launch (a new one each launch)
+    at N = 2**24 less the same launch at N = 1."""
+    import itertools
+    import math
+
+    import torch
+
+    from foundationdb_tpu_torch.device.read_serve import map_prefixes
+    from foundationdb_tpu_torch.ops import kernels as K
+
+    def up(a):
+        return torch.from_numpy(map_prefixes(a)).to(dev)
+
+    def check(t, q) -> int:
+        lo, hi = K.prefix_search(t, q)
+        return band_err(t, q, lo, hi)
+
+    for Ns in (0, 1, 100_001):
+        pfx, probes = prefix_cases(7 + Ns, Ns, 512)
+        err = check(up(pfx), up(probes))
+        say(f"kernel prefix_search N={Ns} n=512: max_abs_err={err}")
+        note("prefix_search", err)
+    N = 1 << 24
+    g = np.random.default_rng(2424)
+    pfx, probes = prefix_cases(24, N, 4096)
+    t = up(pfx)
+    depth = math.ceil(math.log2(N))
+    # the search's dependent chain: one probe a launch, N = 2^24 against
+    # N = 1 (one load, no search level)
+    pool = up(prefix_probes(g, pfx, 4096))
+    lo1 = torch.empty(1, dtype=torch.int64, device=dev)
+    hi1 = torch.empty_like(lo1)
+    per = {}
+    for name, tt in (("2^24", t), ("1", t[:1])):
+        it = itertools.cycle(range(4096))
+        per[name], _ = time_cuda(lambda: K.prefix_search(
+            tt, pool[(i := next(it)):i + 1], lo1, hi1))
+    chain_ms = per["2^24"] - per["1"]
+    say(f"kernel prefix_search chain: {chain_ms:.6f} ms = {depth} levels x "
+        f"{chain_ms / depth * 1e6:.3f} ns (one probe: N=2^24 "
+        f"{per['2^24']:.6f} ms, N=1 {per['1']:.6f} ms)")
+    for n in (512, 4096):
+        sets = [up(probes[:n])] + [up(prefix_probes(g, pfx, n))
+                                   for _ in range(31)]
+        err = max(check(t, q) for q in sets)
+        err_odd = max(check(t[:N - 3], q) for q in sets)
+        lo, hi = K.prefix_search_plain(t, sets[0])
+        band = int((hi - lo).max())
+        out = (torch.empty(n, dtype=torch.int64, device=dev),
+               torch.empty(n, dtype=torch.int64, device=dev))
+        it = itertools.cycle(range(32))
+        ms, call = time_cuda(lambda: K.prefix_search(t, sets[next(it)],
+                                                     *out))
+        pms, _ = time_cuda(lambda: K.prefix_search_plain(t, sets[next(it)]))
+
+        def library():
+            q = sets[next(it)]
+            torch.searchsorted(t, q, side="left")
+            torch.searchsorted(t, q, side="right")
+        lib, _ = time_cuda(library)
+        # what this run's data needs: each probe's left search loads
+        # depth + 1 prefixes, its right search 1 + 2 ceil(log2(w + 1))
+        # for a band w wide; a load is a compare, a select and an add,
+        # counted at the int32 rate
+        w = (hi - lo).cpu().numpy()
+        loads = n * (depth + 2) + int(
+            2 * np.ceil(np.log2(w + 1)).sum())
+        nbytes = n * (8 + 16) + loads * 8
+        ops = 3 * loads
+        bms, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                      (ops / INT32_OPS_PER_S * 1e3, "operations"))
+        say(f"kernel prefix_search N=2^24 n={n}: max_abs_err={err} "
+            f"(N=2^24-3: {err_odd}; 32 probe sets, widest band {band}) "
+            f"ms={ms:.6f} call_ms={call:.6f} plain_ms={pms:.6f} "
+            f"torch.searchsorted_pair_ms={lib:.6f} bound_ms={bms:.8f} "
+            f"({by}; {nbytes} bytes, {ops} operations) "
+            f"latency_bound_ms={chain_ms:.6f}")
+        note("prefix_search", max(err, err_odd))
+        if n == 512:
+            note("prefix_search", err, ms, pms, bms, by, lib,
+                 latency_bound_ms=chain_ms, level_ms=chain_ms / depth)
+
+
+def held_to_plain():
+    """Records every prefix_search call the path makes, by wrapping the
+    kernels module's wrapper (the read mirror calls it through the
+    module).  Returns (calls, restore).  Each call's tensors are its own
+    (a lookup allocates its probes and outputs anew, a refresh replaces
+    a mirror's tensor), so references suffice and the path's timing
+    keeps no extra device work."""
+    from foundationdb_tpu_torch.ops import kernels as K
+    real, calls = K.prefix_search, []
+
+    def recorded(pfx, probes, lo=None, hi=None):
+        lo, hi = real(pfx, probes, lo, hi)
+        calls.append((pfx, probes, lo, hi))
+        return lo, hi
+
+    def restore():
+        K.prefix_search = real
+    K.prefix_search = recorded
+    return calls, restore
+
+
+def plain_err(calls) -> tuple[int, list]:
+    """Each recorded call's bands against the plain version on the same
+    device tensors: (max abs error, the distinct mirror lengths)."""
+    err = max((band_err(*c) for c in calls), default=0)
+    return err, sorted({int(c[0].shape[0]) for c in calls})
+
+
+def band_err(pfx, probes, lo, hi) -> int:
+    """prefix_search's bands (lo, hi) against the plain version's."""
+    from foundationdb_tpu_torch.ops import kernels as K
+    if not probes.numel():
+        return 0
+    plo, phi = K.prefix_search_plain(pfx, probes)
+    return int(max((lo - plo).abs().max(), (hi - phi).abs().max()))
 
 
 # --------------------------------------------------------------------------
@@ -673,6 +862,355 @@ def counter_run(dev, clients: int = 64, seconds: float = 3.0,
     return asyncio.run(main())
 
 
+# --------------------------------------------------------------------------
+# phase 11: the multi-resolver
+
+
+def multi_resolver_phase(dev, batches: int = SCALING_BATCHES,
+                         check_batches: int = 32,
+                         history_slots: int = 256_000,
+                         mesh_seconds: tuple = (1.0, 2.5)) -> list:
+    """bench.multi_resolver at the reference's run_scaling configuration
+    (S in 1, 2, 4, 8; B=64, R=2, width 16, mako over 200000 keys,
+    history_slots split S ways, window 0): the first ``check_batches``
+    of each S on the card against the CPU plain path (verdicts and every
+    partition's ring), then the timed run, then the dryrun's
+    partition-contained stream at S = 8 against the exact C++ set as one
+    resolver, then the live routed mesh at 1 and 4 resolvers on the
+    card.  Returns the launch counts of every run."""
+    import torch
+
+    from foundationdb_tpu_torch.bench import multi_resolver as mr
+    from foundationdb_tpu_torch.ops import kernels as K
+    from foundationdb_tpu_torch.parallel.sharded import (
+        init_sharded_state, make_sharded_resolve_step,
+        sharded_state_to_numpy)
+    cpu = torch.device("cpu")
+    ebs, vs = mr.scaling_batches(batches, 64, 2, 16)
+    for S in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        outs = []
+        for d in (dev, cpu):
+            step, st = mr.scaling_start(S, ebs, vs, 16, history_slots, d)
+            st, v = mr.drive(step, st, ebs[:check_batches],
+                             vs[:check_batches])
+            outs.append((sharded_state_to_numpy(st), np.concatenate(v)))
+        (sa, va), (sb, vb) = outs
+        eq_v = np.array_equal(va, vb)
+        eq_s = all(np.array_equal(x, y) for x, y in zip(sa, sb))
+        say(f"multi-resolver S={S}: first {check_batches} batches, "
+            f"verdicts (committed, conflict, too_old)="
+            f"{np.bincount(va, minlength=3).tolist()} equal to the CPU "
+            f"plain path={eq_v}, rings equal={eq_s} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not (eq_v and eq_s):
+            fail(f"multi-resolver S={S} differs from the CPU plain path")
+    res = mr.run_scaling(batches=batches, history_slots=history_slots,
+                         device=dev)
+    gots = []
+    for S, r in res.items():
+        got = r["launches"]
+        gots.append(got)
+        say(f"multi-resolver S={S}: {batches} batches x 64 txns in "
+            f"{r['elapsed_s']} s = {r['txns_per_sec']} txns/s, "
+            f"speedup_vs_1 {r['speedup_vs_1']}, launches={got}")
+        if not got["hist_check"] == got["commit_chain"] \
+                == got["ring_append"] // 2 == int(S) * batches:
+            fail(f"multi-resolver S={S}: K3 and K1 launches must each be "
+                 f"S x batches = {int(S) * batches}, K2's twice that (one "
+                 f"a plane): {got}")
+    say(f"multi-resolver txns/s: "
+        f"{json.dumps({S: r['txns_per_sec'] for S, r in res.items()})}")
+    # B9 alone, at the step's shapes: the write mask over [S, B, R, L]
+    # and the verdicts' max over [S, B].  Device time: the sum of its
+    # kernels' times under torch.profiler (a span of CUDA events over
+    # ~15 tiny launches would time the gaps between them); bound: bytes
+    # (the writes, the bounds and the verdicts read once, the masked
+    # writes and the verdict written once) over the HBM rate
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundationdb_tpu_torch.bench.profile_resolver import _device_events
+    from foundationdb_tpu_torch.ops.conflict_torch import map_lanes
+    from foundationdb_tpu_torch.parallel import sharded as sh
+    eb = ebs[0]
+    wb, we = (torch.from_numpy(map_lanes(x).copy()).to(dev)
+              for x in (eb.write_begin, eb.write_end))
+    Bb, Rb, Lb = wb.shape
+    for S in (1, 8):
+        lo, hi = (torch.from_numpy(map_lanes(x).copy()).to(dev) for x in (
+            sh.make_partition_boundaries(S, 16)[:-1],
+            sh.make_partition_boundaries(S, 16)[1:]))
+        vs8 = torch.randint(0, 3, (S, Bb), dtype=torch.int8, device=dev)
+
+        def b9():
+            sh._mask_writes_to_partitions(wb, we, lo, hi, 16)
+            vs8.amax(dim=0)
+        b9()
+        sync(dev)
+        reps = 50
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                b9()
+            sync(dev)
+        kern = _device_events(prof)
+        ms = sum(e.time_range.end - e.time_range.start
+                 for e in kern) / reps / 1e3
+        _, span = time_cuda(b9)
+        nbytes = 2 * 4 * Bb * Rb * Lb * (1 + S) + 2 * 4 * S * Lb \
+            + S * Bb + Bb
+        say(f"B9 write mask + verdict max S={S} (B={Bb}, R={Rb}, L={Lb}): "
+            + (f"device ms={ms:.6f} (sum of {len(kern) / reps:.1f} kernels "
+               "a call, profiler)" if kern else "device ms not measured "
+               "(the profiler saw no device kernel)")
+            + f", call_ms={span:.6f} (CUDA events), "
+            f"bound_ms={nbytes / HBM_BYTES_PER_S * 1e3:.8f} "
+            f"(bytes; {nbytes} bytes)")
+    for S in (1, 8):
+        pr = mr.profile_scaling(S, 64, history_slots=history_slots,
+                                device=dev)
+        say(f"multi-resolver S={S} profiled (64 batches): wall "
+            f"{pr['wall_s']:.3f} s, device busy {pr['busy_s']:.6f} s, idle "
+            f"share {pr['idle_share']:.6f}, {pr['kernels_per_batch']:.1f} "
+            f"device kernels a batch; top device us "
+            f"{json.dumps(pr['top_device_us'])}; top host us "
+            f"{json.dumps(pr['top_host_us'])}")
+
+    # __graft_entry__.dryrun_multichip's partition-contained generator at
+    # S = 8 against the exact C++ set run as one resolver
+    from foundationdb_tpu_torch.ops.batch import TxnRequest, encode_batch
+    from foundationdb_tpu_torch.ops.conflict_cpp import CppConflictSet
+    S, Bd, Rd, Wd = 8, 8, 2, 16
+    step = make_sharded_resolve_step(S, Wd, device=dev)
+    st = init_sharded_state(S, Bd * Rd * 64, Wd, device=dev)
+    cpp = CppConflictSet()
+    g = np.random.default_rng(7)
+    version, n, bad, codes = 1000, 0, 0, np.zeros(3, np.int64)
+    K.reset_launches()
+    for _ in range(48):
+        txns = []
+        for _ in range(Bd):
+            part = int(g.integers(0, S))
+            lo = bytes([(256 * part) // S, int(g.integers(0, 5))])
+            txns.append(TxnRequest([(lo, lo + b"\x01")], [(lo, lo + b"\x01")],
+                                   version - int(g.integers(0, 160))))
+        version += 100 + int(g.integers(0, 50))
+        eb = encode_batch(txns, Bd, Rd, Wd)
+        st, v = step(st, eb.read_begin, eb.read_end, eb.write_begin,
+                     eb.write_end, eb.read_snapshot, version)
+        want = np.asarray(cpp.resolve(txns, version))
+        got = v.cpu().numpy()
+        bad += int((got != want).sum())
+        n += len(want)
+        codes += np.bincount(want, minlength=3)
+    got_d = {k: v.launches for k, v in K.KERNELS.items()}
+    gots.append(got_d)
+    say(f"multi-resolver S=8 partition-contained stream: {n} verdicts "
+        f"(committed, conflict, too_old)={codes.tolist()} against the C++ "
+        f"set as one resolver, mismatches={bad}, launches={got_d}")
+    if bad or codes[1] == 0:
+        fail("the partition-contained stream differs from the one-resolver "
+             "C++ set, or had no conflict")
+
+    for k in (1, 4):
+        K.reset_launches()
+        r = asyncio.run(mr._mesh_cluster_run(
+            k, True, seconds=mesh_seconds[1], warmup_s=mesh_seconds[0],
+            device=dev))
+        sync(dev)
+        got = {k_: v.launches for k_, v in K.KERNELS.items()}
+        gots.append(got)
+        say(f"multi-resolver live mesh, {k} resolver(s), routing on, cuda: "
+            f"{r['committed']} committed in {r['elapsed_s']} s = "
+            f"{r['txns_per_sec']} txns/s; partitions "
+            f"{json.dumps(r['partitions'])}; launches={got}")
+        if r["committed"] == 0 or got["commit_chain"] == 0:
+            fail(f"the live mesh at {k} resolvers committed nothing or "
+                 f"launched no kernel: {got}")
+    return gots
+
+
+# --------------------------------------------------------------------------
+# phase 12: durable storage and the read mirror
+
+
+def _durable_knobs(engine: str):
+    # the reference's durability tests' window: versions become durable
+    # 0.1 s of versions behind the tip, checked every 50 ms
+    return e2e_knobs("cuda").override(
+        STORAGE_ENGINE=engine, STORAGE_VERSION_WINDOW=100_000,
+        STORAGE_DURABILITY_LAG=0.05)
+
+
+def durable_phase(dev, n_keys: int = DURABLE_KEYS,
+                  engines=("memory", "lsm", "btree"),
+                  root: str | None = None) -> dict:
+    """For each engine: load mako's n_keys keys (32 bytes) and values,
+    256 a transaction from 32 concurrent loaders, through a durable
+    Cluster.create on a real file system, wait until
+    every storage server's durable version passes the last commit, stop,
+    re-create the cluster from the same directory and read every key
+    back in get_multi batches of 512.  Returns per engine the rates, the
+    mirror's counters and the launches of the read-back."""
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    from foundationdb_tpu_torch.core.cluster import Cluster, ClusterConfig
+    from foundationdb_tpu_torch.ops import kernels as K
+    from foundationdb_tpu_torch.runtime.errors import FdbError
+    from foundationdb_tpu_torch.runtime.files import RealFileSystem
+
+    prefix = b"mako"
+    keys = [prefix + str(i).zfill(32 - len(prefix)).encode()
+            for i in range(n_keys)]
+    values = [b"v%016d" % i for i in range(n_keys)]
+    out = {}
+    for engine in engines:
+        knobs = _durable_knobs(engine)
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            fs = RealFileSystem(tmp)
+
+            async def load():
+                cluster = await Cluster.create(ClusterConfig(), knobs, fs=fs,
+                                               data_dir="db", device=dev)
+                cluster.start()
+                chunks = list(range(0, n_keys, 256))
+                last = 0
+
+                async def loader(w):
+                    nonlocal last
+                    tr = Transaction(cluster)
+                    for c in chunks[w::32]:
+                        while True:
+                            try:
+                                for i in range(c, min(c + 256, n_keys)):
+                                    tr.set(keys[i], values[i])
+                                last = max(last, await tr.commit())
+                                break
+                            except FdbError as e:
+                                await tr.on_error(e)
+                        tr.reset()
+
+                await asyncio.gather(*(loader(w) for w in range(32)))
+                deadline = time.perf_counter() + 120
+                tick = Transaction(cluster)
+                while min(ss.durable_version
+                          for ss in cluster.storage_servers) < last:
+                    if time.perf_counter() > deadline:
+                        fail(f"{engine}: the load did not become durable")
+                    tick.set(b"\xfe-tick", b"%d" % last)
+                    await tick.commit()
+                    tick.reset()
+                    await asyncio.sleep(0.05)
+                await cluster.stop()
+                return last
+
+            t0 = time.perf_counter()
+            last = asyncio.run(load())
+            load_s = time.perf_counter() - t0
+
+            async def read():
+                cluster = await Cluster.create(ClusterConfig(), knobs, fs=fs,
+                                               data_dir="db", device=dev)
+                cluster.start()
+                K.reset_launches()
+                bad = 0
+                calls, restore = held_to_plain()
+                t1 = time.perf_counter()
+                try:
+                    for c in range(0, n_keys, 512):
+                        got = await Transaction(cluster).get_multi(
+                            keys[c:c + 512])
+                        bad += sum(1 for a, b in zip(got, values[c:c + 512])
+                                   if a != b)
+                finally:
+                    restore()
+                read_s = time.perf_counter() - t1
+                mirrors = [ss._device_reads.metrics()
+                           if ss._device_reads is not None else None
+                           for ss in cluster.storage_servers]
+                got = {k: v.launches for k, v in K.KERNELS.items()}
+                await cluster.stop()
+                return bad, read_s, mirrors, got, calls
+
+            bad, read_s, mirrors, got, calls = asyncio.run(read())
+            err, lens = plain_err(calls)
+        out[engine] = dict(load_s=load_s, read_s=read_s, mirrors=mirrors,
+                           launches=got, plain_err=err)
+        say(f"durable {engine}: loaded {n_keys} keys in {load_s:.3f} s "
+            f"({n_keys / load_s:.1f} keys/s, last commit {last}), "
+            f"re-created from disk, read back in {read_s:.3f} s = "
+            f"{n_keys / read_s:.1f} keys/s in get_multi batches of 512; "
+            f"mismatched values={bad}; mirrors={json.dumps(mirrors)}; "
+            f"launches={got}; every prefix_search of the read-back "
+            f"({len(calls)} on mirrors of {lens} prefixes) against its "
+            f"plain version: max_abs_err={err}")
+        if bad:
+            fail(f"durable {engine}: {bad} values read back differ")
+        if err or len(calls) != got["prefix_search"]:
+            fail(f"durable {engine}: prefix_search differs from its plain "
+                 f"version on the read-back's own mirrors and probes")
+        armed = [m for m in mirrors if m is not None]
+        if engine == "btree":
+            if armed or got["prefix_search"]:
+                fail("durable btree: a mirror armed without a packed index")
+            continue
+        if not armed or any(
+                m["device_read_batches"] == 0
+                or m["device_read_fallbacks"] != m["device_read_uploads"]
+                for m in armed) or got["prefix_search"] == 0:
+            fail(f"durable {engine}: the read mirror did not serve the "
+                 "read-back, or fell back for more than its cold-start "
+                 f"and stale batches: {mirrors}, {got}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: bench.device_plane's three A/Bs
+
+
+def device_plane_phase(dev) -> tuple[int, list]:
+    """bench.device_plane on the card: the sharded mirror against one
+    directory at the reference's constants (120000 keys, 12 rounds of
+    400-key churn, 512 probes, 2 batches a round, 4 shards), every
+    device-served batch held equal to engine.get_batch by the bench and
+    every prefix_search call against its plain version on the same
+    tensors; then the verdict bitmask against the raw vectors and the
+    in-place ring against the rebuild, each pair's verdicts equal.
+    Returns prefix_search's max error and each A/B's launches."""
+    from foundationdb_tpu_torch.bench import device_plane as dp
+    from foundationdb_tpu_torch.ops import kernels as K
+
+    def launches():
+        sync(dev)
+        return {k: v.launches for k, v in K.KERNELS.items()}
+    K.reset_launches()
+    calls, restore = held_to_plain()
+    try:
+        r = dp.run_mirror(dev)
+    finally:
+        restore()
+    got = launches()
+    err, lens = plain_err(calls)
+    say(f"mirror A/B: {json.dumps(r)} launches={got}; every prefix_search "
+        f"({len(calls)} on mirrors of {lens} prefixes) against its plain "
+        f"version: max_abs_err={err}")
+    if r["devplane_mirror_sharded_batches"] == 0 or got["prefix_search"] \
+            == 0 or len(calls) != got["prefix_search"] or err:
+        fail(f"the mirror A/B served nothing off the card, or prefix_search "
+             f"differs from its plain version: {r}, {got}")
+    gots = []
+    for name, run, flag in (
+            ("verdict bitmask", dp.run_verdict_bitmask,
+             "devplane_verdict_parity"),
+            ("ring in place", dp.run_ring_inplace, "devplane_ring_parity")):
+        K.reset_launches()
+        r = run(dev)
+        gots.append(launches())
+        say(f"{name} A/B: {json.dumps(r)} launches={gots[-1]}")
+        if not r[flag] or gots[-1]["commit_chain"] == 0:
+            fail(f"the {name} A/B's two sides differ, or it launched no "
+                 f"kernel: {r}, {gots[-1]}")
+    return err, gots
+
+
 def main() -> None:
     try:
         import torch
@@ -700,7 +1238,8 @@ def main() -> None:
     t_start = time.perf_counter()
 
     # 2. build
-    say(f"kernel build: {K.build():.3f} s (3 sources, parallel nvcc)")
+    say(f"kernel build: {K.build():.3f} s ({len(K.KERNELS)} sources, "
+        "parallel nvcc)")
 
     # 3. kernels vs plain
     report: dict = {}
@@ -791,8 +1330,10 @@ def main() -> None:
         f"launches={got7}")
     if flat(rep7) != v4 or not same_state(st7, st4):
         fail("RESOLVER_RING_INPLACE changed verdicts or ring state")
-    if min(got7.values()) == 0:
-        fail(f"the ring-inplace mako run did not launch every kernel: {got7}")
+    if min(got7[k] for k in ("commit_chain", "ring_append",
+                             "hist_check")) == 0:
+        fail("the ring-inplace mako run did not launch every resolver "
+             f"kernel: {got7}")
 
     # 7. the endpoint dictionary on the mako stream
     dkn = smoke_knobs(CONFLICT_DICT_SLOTS=1 << 21)
@@ -949,16 +1490,31 @@ def main() -> None:
         fail("the counters' sum differs from the acknowledged commits "
              "(a lost update), or a commit's outcome was unknown")
 
+    # 11. the multi-resolver; 12. durable storage; 13. the device-plane
+    # A/Bs.  prefix_search's error adds the path's own calls (12, 13)
+    gots11 = multi_resolver_phase(dev)
+    durable = durable_phase(dev)
+    got12 = {k: sum(d["launches"][k] for d in durable.values())
+             for k in K.KERNELS}
+    err13, gots13 = device_plane_phase(dev)
+    report["prefix_search"]["max_abs_err"] = max(
+        report["prefix_search"]["max_abs_err"], err13,
+        *(d["plain_err"] for d in durable.values()))
+
     set_trace_log(TraceLog())
     trace_dir.cleanup()
 
-    for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c):
+    for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
+                *gots11, got12, *gots13):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 11. the kernels line, then the result.  Its launches are those of the
-    # mako run with RESOLVER_RING_INPLACE (phase 6), the one run that
-    # takes all three kernels; each phase printed its own counts above.
+    # 14. the kernels line, then the result.  The resolver kernels'
+    # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
+    # 6), the one run that takes all three; prefix_search's are those of
+    # the durable read-back (phase 12, every engine); each phase printed
+    # its own counts above.
+    launches = dict(got7, prefix_search=got12["prefix_search"])
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),
@@ -966,17 +1522,19 @@ def main() -> None:
                         "foundationdb_tpu/ops/conflict_jax.py:277"),
         "hist_check": ("foundationdb_tpu_torch/csrc/hist_check.cu",
                        "foundationdb_tpu/ops/conflict_jax.py:150"),
+        "prefix_search": ("foundationdb_tpu_torch/csrc/prefix_search.cu",
+                          "foundationdb_tpu/device/read_serve.py:113"),
     }
     line = []
     for name, (src, repl) in meta.items():
         r = report[name]
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": got7[name],
+                     "replaces": repl, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                     **{k: r[k] for k in ("latency_bound_ms", "chain_step_ms")
-                        if k in r}})
+                     **{k: r[k] for k in ("latency_bound_ms", "chain_step_ms",
+                                          "level_ms") if k in r}})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

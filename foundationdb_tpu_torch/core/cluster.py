@@ -81,7 +81,7 @@ class Cluster:
             for tag in tags:
                 engine = (engines or {}).get(tag)
                 ss = StorageServer(k, tag, rng, self.log_system, v0,
-                                   engine=engine)
+                                   engine=engine, device=device)
                 self.storage_servers.append(ss)
                 team.append(ss)
             self._replica_groups.append(ReplicaGroup(rng, team, k))
@@ -122,18 +122,47 @@ class Cluster:
                      knobs: Knobs | None = None,
                      fs=None, data_dir: str | None = None,
                      device=None) -> "Cluster":
-        """Build a cluster.  Without a file system this is the in-memory
-        cluster.  The durable form (TLogs recovering their DiskQueues,
-        storage servers their engines, the restart-resume half of
-        checkpoint/resume, SURVEY.md §5.4(a)) is not ported yet: it
-        comes with the durable engines and ``runtime/files.py`` (ROADMAP
-        A4), and asking for it raises."""
+        """Build a durable cluster from (possibly pre-existing) on-disk
+        state: TLogs recover their DiskQueues, storage servers their
+        engines, and the new epoch starts above every recovered version —
+        the restart-resume half of checkpoint/resume (SURVEY.md §5.4(a)).
+        Without a file system this is the in-memory cluster.  ``device``
+        is where the resolver and the storage servers' read mirrors run
+        (the CUDA card by default)."""
         if fs is None or data_dir is None:
             return cls(config, knobs, device=device)
-        raise NotImplementedError(
-            "durable Cluster.create(fs=..., data_dir=...) is not ported yet "
-            "(ROADMAP A4: durable storage); the port runs in-memory "
-            "clusters only")
+        from ..storage import engine_class
+        config = config or ClusterConfig()
+        knobs = knobs or KNOBS
+        engine_cls = engine_class(knobs.STORAGE_ENGINE)
+        tlogs = [await TLog.open(knobs, fs, f"{data_dir}/tlog-{i}.dq")
+                 for i in range(config.logs)]
+        engines = {}
+        rf = max(1, config.replication)
+        for s in range(config.storage_servers):
+            for r in range(rf):
+                tag = s * rf + r
+                engines[tag] = await engine_cls.open(
+                    fs, f"{data_dir}/storage-{tag}", knobs=knobs)
+        epoch = max([t.version for t in tlogs]
+                    + [e.meta.get("durable_version", 0)
+                       for e in engines.values()] + [0]) + 1
+        cluster = cls(config, knobs, epoch, tlogs=tlogs, engines=engines,
+                      device=device)
+        # durability-ring spill side files: one fresh queue
+        # per storage server — truncated, never recovered (the ring
+        # replays from the TLog; the invariant lives in
+        # StorageServer.attach_fresh_dbuf_queue)
+        for ss in cluster.storage_servers:
+            await ss.attach_fresh_dbuf_queue(
+                fs, f"{data_dir}/storage-{ss.tag}")
+        # the sequencer hands out prev_version == epoch on its first batch;
+        # the recovered TLogs (built before cls()) must have their chain
+        # tips bumped to it or the first push would wait forever (the
+        # resolvers are constructed at the epoch already)
+        for t in tlogs:
+            t.version = epoch
+        return cluster
 
     # --- lifecycle ---
 

@@ -36,7 +36,7 @@ class StorageServer:
     def __init__(self, knobs: Knobs, tag: Tag, shard: KeyRange,
                  log_system, epoch_begin_version: Version = 0,
                  engine=None, fetch_src=None,
-                 fetch_version: Version = 0) -> None:
+                 fetch_version: Version = 0, device=None) -> None:
         from .log_system import LogSystem
         self.knobs = knobs
         self.tag = tag
@@ -155,15 +155,18 @@ class StorageServer:
         # device gather path for point-read serving: a device
         # mirror of the engine's PackedKeyIndex answers get_values'
         # missing-key pass with one vectorized searchsorted per batch.
-        # The mirror (device/read_serve.py) is not ported yet (ROADMAP
-        # A4), so an engine with the knob on is refused rather than
-        # served from the host behind the caller's back.
+        # Engines without a packed index report inactive and the engine
+        # path serves.  The mirror lives on ``device`` (the CUDA card
+        # unless the caller passes the CPU).
         self._device_reads = None
         if engine is not None and knobs.STORAGE_DEVICE_READ_SERVE:
-            raise NotImplementedError(
-                "STORAGE_DEVICE_READ_SERVE with a storage engine needs the "
-                "device read mirror, which is not ported yet (ROADMAP A4); "
-                "set STORAGE_DEVICE_READ_SERVE=False to serve from the host")
+            from ..device.read_serve import DeviceReadServer
+            # version_fn feeds the staleness gauge:
+            # how many versions the mirror trails THIS server's tip
+            srv = DeviceReadServer(engine, knobs, device=device,
+                                   version_fn=lambda: self.version)
+            if srv.active:
+                self._device_reads = srv
 
     def attach_dbuf_queue(self, queue) -> None:
         """Arm the durability ring's disk spill with a per-server

@@ -1,6 +1,6 @@
-"""The resolver path's hand kernels (csrc/*.cu) and their plain versions.
+"""The port's hand kernels (csrc/*.cu) and their plain versions.
 
-Three kernels, each a CUDA C++ source for ``sm_90a`` compiled with
+Four kernels, each a CUDA C++ source for ``sm_90a`` compiled with
 ``nvcc`` into its own shared library at first use and bound through
 ctypes over a plain C launcher (no PyTorch headers, so a build takes
 seconds):
@@ -16,6 +16,10 @@ seconds):
 - ``hist_check``    (csrc/hist_check.cu) — reads vs the history, with the
   reference's window/full-ring ``lax.cond`` decided inside the launch;
   replaces the XLA-compiled ``_hist_check_T`` / ``_point_hist_check_T``.
+- ``prefix_search`` (csrc/prefix_search.cu) — the storage read mirror's
+  left and right bounds of a batch of key prefixes in one launch;
+  replaces the XLA-compiled ``jnp.searchsorted`` pair of
+  ``device/read_serve.py``.
 
 A resolve batch of the fused loop is one ``hist_check`` launch and one
 ``commit_chain`` launch (``GroupLaunches``: checked once per group).
@@ -133,6 +137,9 @@ KERNELS = {
         "hist_check", "hist_check.cu", "fdbt_hist_check",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(Seg), _P, _P,
          _P, _P]),
+    "prefix_search": Kernel(
+        "prefix_search", "prefix_search.cu", "fdbt_prefix_search",
+        [_P, _LL, _P, _LL, _P, _P, _P]),
 }
 
 
@@ -631,6 +638,54 @@ def _hist_check_args(rb, re, snap, width, points, hit, full, window, edge,
     return [rb.data_ptr(), re.data_ptr(), snap.data_ptr(), B, R, L,
             mapped(width), mapped(width + 1), SENTINEL_MAPPED, int(points),
             arr, _ptr(edge), _ptr(floor), hit.data_ptr(), _stream()]
+
+
+# --------------------------------------------------------------------------
+# B8: the read mirror's prefix search
+
+
+def prefix_search_plain(pfx: torch.Tensor, probes: torch.Tensor):
+    """(lo, hi): the left and right ``searchsorted`` bounds of ``probes``
+    in the sorted ``pfx``, as two torch calls."""
+    return (torch.searchsorted(pfx, probes, side="left"),
+            torch.searchsorted(pfx, probes, side="right"))
+
+
+def prefix_search(pfx: torch.Tensor, probes: torch.Tensor,
+                  lo: torch.Tensor | None = None,
+                  hi: torch.Tensor | None = None):
+    """(lo, hi) int64 [n]: for each of the n int64 ``probes`` the count
+    of the sorted int64 prefixes ``pfx`` [N] below it (lo) and at or below
+    it (hi), written into ``lo`` / ``hi`` when given (unit-stride, e.g.
+    slices of one output).  Prefixes and probes are u64 key prefixes with
+    the sign bit flipped (``read_serve.map_prefixes``)."""
+    _check(pfx, "pfx", torch.int64, 1)
+    _check(probes, "probes", torch.int64, 1)
+    n = probes.shape[0]
+    dev = _same_device(pfx, probes, lo, hi)
+    if lo is None:
+        lo = torch.empty(n, dtype=torch.int64, device=dev)
+    if hi is None:
+        hi = torch.empty(n, dtype=torch.int64, device=dev)
+    for t, name in ((lo, "lo"), (hi, "hi")):
+        _check(t, name, torch.int64, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"prefix_search: {name} has {t.shape[0]} != {n}")
+    if dev.type == "cpu":
+        a, b = prefix_search_plain(pfx, probes)
+        lo.copy_(a)
+        hi.copy_(b)
+        return lo, hi
+    if dev.type != "cuda":
+        raise ValueError(f"prefix_search: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in (pfx, probes, lo, hi)):
+        raise ValueError("prefix_search: prefixes, probes and outputs must "
+                         "be contiguous")
+    if n:
+        KERNELS["prefix_search"].launch(
+            pfx.data_ptr(), pfx.shape[0], probes.data_ptr(), n,
+            lo.data_ptr(), hi.data_ptr(), _stream())
+    return lo, hi
 
 
 # --------------------------------------------------------------------------

@@ -13,7 +13,7 @@ answer; the reference runs its ``tpu`` backend on JAX's CPU.
     endpoint dictionary off and on (and a ``cuda``-marked twin that runs
     the port on the card against the port on the CPU);
 (c) same-seed bit-identical traces across two fresh processes;
-(d) the slice's boundaries and default device, and the wire registry.
+(d) the durable storage gates, the default device, and the wire registry.
 
 The child half runs as ``python tests/test_torch_cluster.py --child
 <trace-path>``: a seeded multi-role sim of the port that prints the
@@ -503,33 +503,39 @@ def test_cluster_default_device_is_the_card(monkeypatch):
         .resolvers[0].backend.cs.device == CPU
 
 
-def test_durable_storage_is_refused():
-    from foundationdb_tpu_torch.core.cluster import Cluster
+def test_durable_storage_is_refused(monkeypatch):
+    """What the port refuses around durable storage now: an unknown
+    engine name.  Every engine is served, an engine-backed server arms
+    the read mirror on the device it is given exactly when the knob is
+    on, and without a device and without a card it raises instead of
+    serving from the host."""
+    from foundationdb_tpu_torch.core.data import KeyRange
     from foundationdb_tpu_torch.core.storage_server import StorageServer
     from foundationdb_tpu_torch.core.tlog import TLog
     from foundationdb_tpu_torch.storage import engine_class
-    from foundationdb_tpu_torch.storage.kv_store import MemoryKVStore
-    with pytest.raises(NotImplementedError, match="A4"):
-        asyncio.run(Cluster.create(knobs=port_knobs("cpp"), fs=object(),
-                                   data_dir="d"))
-    assert engine_class("memory") is MemoryKVStore
-    for name in ("lsm", "btree"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            engine_class(name)
+    from foundationdb_tpu_torch.storage.btree import BTreeKVStore
+    from foundationdb_tpu_torch.storage.kv_store import OP_SET, MemoryKVStore
+    from foundationdb_tpu_torch.storage.lsm import LSMKVStore
+    assert [engine_class(n) for n in ("memory", "lsm", "btree")] == \
+        [MemoryKVStore, LSMKVStore, BTreeKVStore]
     with pytest.raises(ValueError):
         engine_class("rocksdb")
     knobs = port_knobs("cpp")
     assert knobs.STORAGE_DEVICE_READ_SERVE
-    engine = types.SimpleNamespace(meta={})
-    with pytest.raises(NotImplementedError, match="A4"):
-        StorageServer(knobs, 0, None, TLog(knobs), engine=engine)
-    # without the knob, an engine is served from the host as in the
-    # reference (no device mirror involved)
+    engine = MemoryKVStore(None, "t")
+    engine._apply([(OP_SET, b"k%04d" % i, b"v") for i in range(100)])
+    everything = KeyRange.everything()
+    ss = StorageServer(knobs, 0, everything, TLog(knobs), engine=engine,
+                       device=CPU)
+    assert ss._device_reads is not None and ss._device_reads.active
+    assert ss._device_reads._dir._device == CPU
     off = knobs.override(STORAGE_DEVICE_READ_SERVE=False)
-    from foundationdb_tpu_torch.core.data import KeyRange
-    ss = StorageServer(off, 0, KeyRange.everything(), TLog(off),
-                       engine=engine)
+    ss = StorageServer(off, 0, everything, TLog(off), engine=engine,
+                       device=CPU)
     assert ss._device_reads is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StorageServer(knobs, 0, everything, TLog(knobs), engine=engine)
 
 
 def test_wire_registry_and_bytes_match_reference():
