@@ -82,7 +82,26 @@ commit and storage paths on the card and exits non-zero on any failure:
    call equal to the plain version on its own tensors; the verdict
    bitmask against the raw vectors and the in-place ring against the
    rebuild, each pair's verdicts equal;
-14. one JSON line with each kernel's launches (the resolver kernels' in
+14. YCSB workload F (bench.ycsb, BASELINE.md config 3): 1000000 rows of
+   one 100-byte field under 23-byte keys, zipf 0.99 read-modify-write,
+   256 clients, 2 s warm-up then 8 s measured, on the ``cuda`` backend at
+   the operating point and then the ``cpp`` backend with its backend knob
+   alone: ops/s, latency, abort rate and codes (only 1007 and 1020), the
+   load's time, K1 = K3 launches (nonzero on cuda); every row read back
+   before the cluster stops (Cluster.stop wrapped here); every resolve of
+   the cuda run replayed through a ``cpp`` Resolver, every verdict equal;
+15. TPC-C NewOrder (bench.tpcc, BASELINE.md config 4): 2 warehouses, 10
+   districts, 1000 items, half the NewOrders on district (1, 1), 128
+   clients, the same knobs, windows and checks, and TPC-C's consistency
+   condition 1 in every district read before the cluster stops; tpmC
+   where neither backend livelocks;
+16. the abort-parity gate (bench.abort_parity at parity_knobs(): R = 8,
+   24-txn batches, a ring of 1 << 13, 60 batches, seed 7) on the card and
+   on the CPU plain path: equal reports and equal encoded verdicts for
+   every batch, no safety violation, 1440 txns audited;
+17. bench.tpu_probe as its own process: its status file reads ok with
+   this card's name;
+18. one JSON line with each kernel's launches (the resolver kernels' in
    phase 6's run, prefix_search's in phase 12's), max error, times and
    bound (K1 also its latency bound: B chain steps at the step time
    measured in phase 3; B8 its latency bound: one probe's search chain
@@ -94,6 +113,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import os
@@ -114,6 +134,10 @@ SCALING_BATCHES = 512
 DURABLE_KEYS = 100_000
 B, R, WIDTH = 64, 8, 32
 E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 8.0
+# BASELINE.md configs 3 and 4 at the reference bench.py's device client
+# counts (its _TPU_CLIENTS)
+YCSB_ROWS, YCSB_FIELD, YCSB_CLIENTS = 1_000_000, 100, 256
+TPCC_CLIENTS = 128
 
 
 def fail(msg: str) -> None:
@@ -736,28 +760,43 @@ def e2e_knobs(kind: str):
                             **OPERATING_POINT)
 
 
+@contextlib.contextmanager
+def wrapped(cls, name: str, make):
+    """``cls.name`` replaced by ``make(original)`` inside the block."""
+    orig = getattr(cls, name)
+    setattr(cls, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def recording_resolves(record: list | None):
+    """Every (ResolveBatchRequest, reply) a Resolver answers appended to
+    ``record``, by wrapping Resolver.resolve (nothing with None)."""
+    from foundationdb_tpu_torch.core.resolver import Resolver
+    if record is None:
+        return contextlib.nullcontext()
+
+    def make(orig):
+        async def recording(self, req):
+            reply = await orig(self, req)
+            record.append((req, reply))
+            return reply
+        return recording
+    return wrapped(Resolver, "resolve", make)
+
+
 def e2e_run(kind: str, dev, record: list | None = None,
             warmup_s: float = E2E_WARMUP_S, seconds: float = E2E_SECONDS):
     """bench.e2e.run_e2e at the operating point.  With ``record``, every
     (ResolveBatchRequest, reply) the cluster's resolver answers is
     appended to it, by wrapping Resolver.resolve for the run."""
     from foundationdb_tpu_torch.bench.e2e import run_e2e
-    from foundationdb_tpu_torch.core.resolver import Resolver
-    orig = Resolver.resolve
-
-    async def recording(self, req):
-        reply = await orig(self, req)
-        record.append((req, reply))
-        return reply
-
-    if record is not None:
-        Resolver.resolve = recording
-    try:
+    with recording_resolves(record):
         return asyncio.run(run_e2e(e2e_knobs(kind), duration_s=seconds,
                                    n_clients=E2E_CLIENTS, device=dev,
                                    warmup_s=warmup_s))
-    finally:
-        Resolver.resolve = orig
 
 
 def e2e_report(kind: str, r: dict, got: dict) -> None:
@@ -785,21 +824,21 @@ def e2e_report(kind: str, r: dict, got: dict) -> None:
     say(f"e2e {kind}: the largest stage mean is {lead} ({stages[lead]} ms)")
 
 
-def e2e_idle_share(dev) -> dict:
-    """A shorter cuda run under torch.profiler (CUDA activity): the
-    union of the device kernels' intervals over the run's wall time."""
+def idle_share(run) -> dict:
+    """``run()`` under torch.profiler (CUDA activity): the union of the
+    device kernels' intervals over the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from foundationdb_tpu_torch.bench.profile_resolver import (_device_events,
                                                                busy_us)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        r = e2e_run("cuda", dev, warmup_s=1.0, seconds=2.0)
+        r = run()
     wall = time.perf_counter() - t0
     kern = _device_events(prof)
     busy = busy_us(kern) / 1e6
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
-            "kernels": len(kern), "tps": r["tps"]}
+            "kernels": len(kern), "report": r}
 
 
 def replay_cpp(record: list) -> tuple[int, int]:
@@ -1211,6 +1250,253 @@ def device_plane_phase(dev) -> tuple[int, list]:
     return err, gots
 
 
+# --------------------------------------------------------------------------
+# phases 14 and 15: YCSB workload F and TPC-C NewOrder, cuda and cpp
+
+
+def bench_knobs(kind: str):
+    """The reference bench.py's run_configs34_phase knobs: cuda at the
+    device operating point, cpp with the backend knob alone."""
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    if kind == "cuda":
+        return e2e_knobs(kind)
+    return Knobs().override(RESOLVER_CONFLICT_BACKEND=kind)
+
+
+async def ycsb_readback(cluster) -> dict:
+    """Every ``user`` row, in reads of 20000 rows a transaction."""
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    t0 = time.perf_counter()
+    keys, short, begin = [], 0, b"user"
+    while True:
+        rows = await Transaction(cluster).get_range(begin, b"user\xff",
+                                                    limit=20_000)
+        keys += [k for k, _ in rows]
+        short += sum(1 for _, v in rows if len(v) != YCSB_FIELD)
+        if len(rows) < 20_000:
+            break
+        begin = rows[-1][0] + b"\x00"
+    return {"keys": keys, "bad_values": short,
+            "seconds": time.perf_counter() - t0}
+
+
+async def tpcc_consistency(cluster, warehouses: int = 2,
+                           districts: int = 10) -> dict:
+    """TPC-C consistency condition 1 (clause 3.3.2.2) over NewOrder's
+    rows: in every district the order ids and the new-order ids are
+    exactly [3000, next_o_id), and each order has its n_lines
+    order-line rows."""
+    from foundationdb_tpu_torch.client import tuple as tup
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    bad, orders, lines = [], 0, 0
+    for w in range(1, warehouses + 1):
+        for d in range(1, districts + 1):
+            tr = Transaction(cluster)
+            next_o_id, _ = tup.unpack(await tr.get(tup.pack(("dist", w, d))))
+            want = list(range(3000, next_o_id))
+            got = {}
+            for table in ("order", "neworder", "orderline"):
+                got[table] = [(tup.unpack(k), v) for k, v in await
+                              tr.get_range(*tup.range_of((table, w, d)))]
+            o_ids = [k[3] for k, _ in got["order"]]
+            no_ids = [k[3] for k, _ in got["neworder"]]
+            per_order: dict[int, int] = {}
+            for k, _ in got["orderline"]:
+                per_order[k[3]] = per_order.get(k[3], 0) + 1
+            n_lines = {k[3]: tup.unpack(v)[1] for k, v in got["order"]}
+            if o_ids != want or no_ids != want or per_order != n_lines:
+                bad.append((w, d, next_o_id, len(o_ids), len(no_ids)))
+            orders += len(o_ids)
+            lines += len(got["orderline"])
+    return {"districts": warehouses * districts, "orders": orders,
+            "order_lines": lines, "bad": bad}
+
+
+def bench_run(which: str, kind: str, dev, record: list | None = None):
+    """bench.ycsb.run_ycsb_f (BASELINE config 3: YCSB_ROWS rows of one
+    100-byte field, zipf 0.99, YCSB_CLIENTS clients) or
+    bench.tpcc.run_tpcc_neworder (config 4: 2 warehouses, 10 districts,
+    1000 items, half the NewOrders on district (1, 1), TPCC_CLIENTS
+    clients) on ``kind``, E2E_WARMUP_S of warm-up, E2E_SECONDS measured.
+    Cluster.stop is wrapped so the keyspace is read back (the YCSB rows,
+    or TPC-C's condition 1) before the cluster stops; with ``record``,
+    every resolve is recorded.  Returns (report, read-back, load s)."""
+    from foundationdb_tpu_torch.bench import tpcc, ycsb
+    from foundationdb_tpu_torch.core.cluster import Cluster
+    knobs = bench_knobs(kind)
+    device = dev if kind == "cuda" else None
+    if which == "ycsb":
+        run = ycsb.run_ycsb_f(knobs, n_rows=YCSB_ROWS,
+                              duration_s=E2E_SECONDS, n_clients=YCSB_CLIENTS,
+                              field_len=YCSB_FIELD, device=device,
+                              warmup_s=E2E_WARMUP_S)
+        reader = ycsb_readback
+    else:
+        run = tpcc.run_tpcc_neworder(knobs, duration_s=E2E_SECONDS,
+                                     n_clients=TPCC_CLIENTS, device=device,
+                                     warmup_s=E2E_WARMUP_S)
+        reader = tpcc_consistency
+    seen: dict = {}
+
+    def stop(orig):
+        async def reading_back(self):
+            seen["read"] = await reader(self)
+            await orig(self)
+        return reading_back
+
+    def start(orig):
+        def starting(self):
+            seen["start"] = time.perf_counter()
+            orig(self)
+        return starting
+
+    class FirstSample(ycsb.ZipfianGenerator):
+        # the clients' first draw ends YCSB's load phase
+        def sample(self, n):
+            seen.setdefault("loaded", time.perf_counter())
+            return super().sample(n)
+
+    gc.collect()
+    with recording_resolves(record), wrapped(Cluster, "stop", stop), \
+            wrapped(Cluster, "start", start), \
+            wrapped(ycsb, "ZipfianGenerator", lambda _: FirstSample):
+        rep = asyncio.run(run)
+    load = seen.get("loaded", seen["start"]) - seen["start"]
+    return rep, seen["read"], load
+
+
+def bench_phase(which: str, dev, count_run) -> list:
+    """Phase 14 (ycsb) or 15 (tpcc): cuda then cpp in one process, then
+    the cuda run's resolves replayed through a cpp Resolver.  Returns
+    the two runs' launch counts."""
+    from foundationdb_tpu_torch.bench.ycsb import _ycsb_key
+    record: list = []
+    reps, gots = {}, []
+    for kind in ("cuda", "cpp"):
+        (rep, read, load), got = count_run(lambda: bench_run(
+            which, kind, dev, record if kind == "cuda" else None))
+        reps[kind] = rep
+        gots.append(got)
+        say(f"{which} {kind}: {json.dumps(rep)}; "
+            + (f"load {load:.3f} s; " if which == "ycsb" else "")
+            + f"launches={got}")
+        if which == "ycsb":
+            keys = read.pop("keys")
+            want = sorted(_ycsb_key(i) for i in range(YCSB_ROWS))
+            say(f"{which} {kind} read-back before stop: {len(keys)} rows "
+                f"({YCSB_ROWS} loaded), {read['bad_values']} not "
+                f"{YCSB_FIELD} bytes, {read['seconds']:.3f} s")
+            if keys != want or read["bad_values"]:
+                fail(f"ycsb {kind}: the keyspace read back is not the "
+                     f"{YCSB_ROWS} rows of {YCSB_FIELD} bytes loaded")
+            if rep["ops"] == 0 or set(rep["abort_codes"]) - {"1007",
+                                                              "1020"}:
+                fail(f"ycsb {kind}: nothing committed, or an abort that is "
+                     f"neither 1007 nor 1020: {rep['abort_codes']}")
+        else:
+            say(f"{which} {kind} consistency condition 1 before stop: "
+                f"{json.dumps(read)}")
+            if read["bad"] or rep["new_orders"] == 0 or read["orders"] == 0:
+                fail(f"tpcc {kind}: consistency condition 1 fails in "
+                     f"{read['bad']}, or no NewOrder committed")
+        if got["hist_check"] != got["commit_chain"] or \
+                (kind == "cuda") != (got["commit_chain"] > 0):
+            fail(f"the {which} {kind} run launched {got}")
+    n_cmp, mism = replay_cpp(record)
+    say(f"{which} replay: {len(record)} resolve batches, {n_cmp} verdicts "
+        f"of the cuda run against a cpp Resolver, mismatches={mism}")
+    if mism or n_cmp == 0:
+        fail(f"the {which} cuda run's verdicts differ from the cpp replay")
+    if which == "ycsb":
+        say(f"ycsb ops/s: cuda {reps['cuda']['ops_per_sec']:.1f} cpp "
+            f"{reps['cpp']['ops_per_sec']:.1f}")
+        return gots
+    live = not (reps["cuda"]["livelock"] or reps["cpp"]["livelock"])
+    say("tpcc tpmC: " + (f"cuda {reps['cuda']['tpmC']:.1f} cpp "
+                         f"{reps['cpp']['tpmC']:.1f}" if live else
+                         "livelock on a backend, no tpmC"))
+    # the card's idle share over a shorter cuda pass (TPC-C's load is one
+    # transaction, so the pass is nearly all NewOrders)
+    from foundationdb_tpu_torch.bench.tpcc import run_tpcc_neworder
+    idle = idle_share(lambda: asyncio.run(run_tpcc_neworder(
+        bench_knobs("cuda"), duration_s=2.0, n_clients=TPCC_CLIENTS,
+        device=dev, warmup_s=1.0)))
+    say(f"tpcc cuda profiled pass (1 s warm-up, 2 s measured): wall "
+        f"{idle['wall_s']:.3f} s, device busy {idle['busy_s']:.6f} s, idle "
+        f"share {idle['idle_share']:.6f}, {idle['kernels']} device kernels, "
+        f"{idle['report']['new_orders']} NewOrders")
+    return gots
+
+
+# --------------------------------------------------------------------------
+# phase 16: the abort-parity gate on the card; phase 17: the probe
+
+
+def parity_phase(dev, count_run) -> dict:
+    """bench.abort_parity at parity_knobs() (R = 8, 24-txn batches, a
+    ring of 1 << 13), 60 batches, seed 7, on the card and on the CPU
+    plain path: equal reports, and every batch's encoded verdicts equal
+    (recorded by wrapping the encoded backend's resolve).  Returns the
+    card run's launches."""
+    import torch
+
+    from foundationdb_tpu_torch.bench import abort_parity as ap
+    from foundationdb_tpu_torch.ops.backends import EncodedConflictBackend
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        verdicts: list = []
+
+        def make(orig):
+            def recording(self, txns, v):
+                r = orig(self, txns, v)
+                verdicts.append((v, [int(x) for x in r]))
+                return r
+            return recording
+        t0 = time.perf_counter()
+        with wrapped(EncodedConflictBackend, "resolve", make):
+            rep, got = count_run(lambda: ap.run_parity(
+                ap.parity_knobs(), "cuda", n_batches=60, batch_size=24,
+                seed=7, device=d))
+        runs.append((rep, verdicts, got))
+        say(f"abort parity on {d.type}: {json.dumps(rep)} launches={got} "
+            f"({time.perf_counter() - t0:.3f} s)")
+    (card, vc, got), (cpu, vp, got_cpu) = runs
+    say(f"abort parity: {len(vc)} encoded batches, verdicts equal to the "
+        f"CPU plain path={vc == vp}, report equal={card == cpu}; abort "
+        f"rate exact {card['abort_rate_exact']} encoded "
+        f"{card['abort_rate_encoded']} (delta {card['abort_rel_delta']}); "
+        f"widening aborts: coalescing {card['widening_aborts_coalescing']} "
+        f"encoding {card['widening_aborts_encoding']} too_old "
+        f"{card['widening_aborts_too_old']}")
+    if card != cpu or vc != vp or card["safety_violations"] \
+            or card["txns_audited"] != 1440:
+        fail("the abort-parity gate on the card differs from the CPU plain "
+             "path, or is unsafe, or did not audit 1440 txns")
+    if got["commit_chain"] == 0 or any(got_cpu.values()):
+        fail(f"the parity run launched {got} on the card, {got_cpu} on the "
+             "CPU")
+    return got
+
+
+def probe_phase() -> None:
+    """bench.tpu_probe as its own process: the status file must read ok
+    with this card's name."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "probe.json")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "foundationdb_tpu_torch.bench.tpu_probe",
+             "--out", out], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        st = json.load(open(out)) if os.path.exists(out) else {}
+    say(f"probe: rc {p.returncode}, {json.dumps(st)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if p.returncode or st.get("state") != "ok" or \
+            st.get("device") != torch.cuda.get_device_name(0):
+        fail(f"the probe did not read ok on this card: {st} {p.stderr}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1464,11 +1750,12 @@ def main() -> None:
             got10 = got
     say(f"e2e txns/s: cuda {e2e['cuda']['tps']:.1f} cpp "
         f"{e2e['cpp']['tps']:.1f}")
-    idle = e2e_idle_share(dev)
+    idle = idle_share(lambda: e2e_run("cuda", dev, warmup_s=1.0,
+                                      seconds=2.0))
     say(f"e2e cuda profiled pass (1 s warm-up, 2 s measured): wall "
         f"{idle['wall_s']:.3f} s, device busy {idle['busy_s']:.6f} s, idle "
         f"share {idle['idle_share']:.6f}, {idle['kernels']} device kernels, "
-        f"{idle['tps']:.1f} txns/s")
+        f"{idle['report']['tps']:.1f} txns/s")
 
     # 10b. the cuda run's verdicts against a cpp replay of its requests
     t0 = time.perf_counter()
@@ -1501,15 +1788,21 @@ def main() -> None:
         report["prefix_search"]["max_abs_err"], err13,
         *(d["plain_err"] for d in durable.values()))
 
+    # 14. YCSB-F; 15. TPC-C NewOrder; 16. the abort-parity gate; 17. the
+    # probe
+    gots14 = bench_phase("ycsb", dev, count_run)
+    gots15 = bench_phase("tpcc", dev, count_run)
     set_trace_log(TraceLog())
     trace_dir.cleanup()
+    got16 = parity_phase(dev, count_run)
+    probe_phase()
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
-                *gots11, got12, *gots13):
+                *gots11, got12, *gots13, *gots14, *gots15, got16):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 14. the kernels line, then the result.  The resolver kernels'
+    # 18. the kernels line, then the result.  The resolver kernels'
     # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
     # 6), the one run that takes all three; prefix_search's are those of
     # the durable read-back (phase 12, every engine); each phase printed

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import buggify_off  # noqa: F401  (autouse)
+
 _THIS = os.path.abspath(__file__)
 _REPO = os.path.dirname(os.path.dirname(_THIS))
 CPU = torch.device("cpu")

@@ -33,6 +33,7 @@ from foundationdb_tpu_torch.ops import kernels as K
 from foundationdb_tpu_torch.runtime.knobs import Knobs as PKnobs
 from foundationdb_tpu_torch.storage.kv_store import OP_SET
 from foundationdb_tpu_torch.storage.kv_store import MemoryKVStore as PMem
+from torch_parity import buggify_off  # noqa: F401  (autouse)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

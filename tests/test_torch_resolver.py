@@ -25,6 +25,7 @@ from foundationdb_tpu_torch.ops import batch as port_batch
 from foundationdb_tpu_torch.runtime import Knobs as PortKnobs
 from foundationdb_tpu_torch.runtime import \
     run_simulation as port_run_simulation
+from torch_parity import buggify_off  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import buggify_off  # noqa: F401  (autouse)
+
 CPU = torch.device("cpu")
 PACKAGES = ("foundationdb_tpu", "foundationdb_tpu_torch")
 
@@ -249,11 +251,10 @@ def scenario_engine_restart(p, engine):
         "restart-lsm", "restart-btree"])
 def test_durable_cluster_restart_matches_reference(scenario, engine):
     ref, port = (scenario(package(n), engine) for n in PACKAGES)
-    # the data must agree; the mirror counters are the port's alone (how
-    # many reads reach an engine rather than the MVCC window depends on
-    # how far durability got before the stop, which host-clocked role
-    # code moves in both packages alike)
+    # the data first, then the whole result: each storage server's
+    # read-mirror counters too
     assert ref[:-1] == port[:-1]
+    assert ref == port, (ref[-1], port[-1])
     if scenario is scenario_restart_after_durability:
         rows, got, after, every, mirrors = port
         assert [k for k, _ in rows] == [b"key%02d" % i
