@@ -101,7 +101,31 @@ commit and storage paths on the card and exits non-zero on any failure:
    every batch, no safety violation, 1440 txns audited;
 17. bench.tpu_probe as its own process: its status file reads ok with
    this card's name;
-18. one JSON line with each kernel's launches (the resolver kernels' in
+18. the multi-role cluster on the card through two recoveries: 3
+   coordinators, 6 workers (each with a simulated disk, so storage runs
+   the memory engine and its read mirror arms on the card) and a
+   cluster controller over the port's SimNetwork under run_simulation,
+   at the device operating point: epoch 1; 4096 mako keys loaded and
+   16 mako clients of 40 transactions; every key read back in get_multi
+   batches of 512 (the mirror serves, B8); the resolver's machine then
+   the second TLog's killed (their processes stopped), each followed by
+   the next epoch and another mako round; every acknowledged write read
+   back; ``\xff\xff/status/json``.  Every resolve is recorded by wrapping
+   Resolver.resolve and each resolver generation replayed through a
+   fresh cpp Resolver (0 mismatches); no reply after a role stopped;
+   every prefix_search call equal to the plain version; K3 = K1 > 0;
+   the status shows epoch 3 and a pipelined resolver that dispatched;
+   only the current epoch's resolver is hosted, and the card's allocated
+   memory after each epoch stays within one ring's bytes;
+19. three ``python3 -m foundationdb_tpu_torch.server --device cuda``
+   processes over localhost TCP (a cluster file of three coordinators,
+   ``--spec min_workers=3``, logs to files): a client here opens the
+   cluster through the coordinators, commits 64 x 50 transactions, reads
+   every one back, reads and clears the range, reads the status (epoch
+   1, a pipelined resolver that dispatched); txns/s, the client's
+   p50/p99 and the time from spawn to the first commit; every server
+   alive until SIGTERM, stopped cleanly by it, no traceback in any log;
+20. one JSON line with each kernel's launches (the resolver kernels' in
    phase 6's run, prefix_search's in phase 12's), max error, times and
    bound (K1 also its latency bound: B chain steps at the step time
    measured in phase 3; B8 its latency bound: one probe's search chain
@@ -138,6 +162,10 @@ E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 8.0
 # counts (its _TPU_CLIENTS)
 YCSB_ROWS, YCSB_FIELD, YCSB_CLIENTS = 1_000_000, 100, 256
 TPCC_CLIENTS = 128
+# phase 18: more keys than a memory engine holds pending before its key
+# index takes a base run (1024), so the read mirror serves
+CLUSTER_KEYS = 4096
+CARD = ""          # nvidia-smi's name and power limit, set by main
 
 
 def fail(msg: str) -> None:
@@ -1497,6 +1525,533 @@ def probe_phase() -> None:
         fail(f"the probe did not read ok on this card: {st} {p.stderr}")
 
 
+# --------------------------------------------------------------------------
+# phase 18: the multi-role cluster on the card, through two recoveries
+
+
+def cluster_knobs(kind: str):
+    """The device operating point with memory-engine storage whose
+    versions leave the MVCC window 0.1 s of versions behind the tip."""
+    return e2e_knobs(kind).override(
+        STORAGE_ENGINE="memory", STORAGE_VERSION_WINDOW=100_000,
+        STORAGE_DURABILITY_LAG=0.05)
+
+
+class SimCluster:
+    """3 coordinators, 6 workers and a cluster controller over the port's
+    SimNetwork (the shape of the reference's recovery tests); each worker
+    has its own simulated disk, so storage runs the memory engine and its
+    read mirror arms on ``dev``."""
+
+    def __init__(self, knobs, dev, n_workers: int = 6, n_coord: int = 3):
+        from foundationdb_tpu_torch.core.coordination import Coordinator
+        from foundationdb_tpu_torch.core.worker import Worker
+        from foundationdb_tpu_torch.rpc.sim_transport import (SimNetwork,
+                                                              SimTransport)
+        from foundationdb_tpu_torch.rpc.stubs import serve_role
+        from foundationdb_tpu_torch.rpc.transport import (
+            WLTOKEN_FIRST_AVAILABLE, NetworkAddress)
+        from foundationdb_tpu_torch.runtime.files import SimFileSystem
+        self.knobs, self.base = knobs, WLTOKEN_FIRST_AVAILABLE
+        self.net = SimNetwork(knobs)
+        self._port = 6000
+        self.coord_addrs = [NetworkAddress(f"10.0.0.{i + 1}", 4000)
+                            for i in range(n_coord)]
+        for a in self.coord_addrs:
+            serve_role(SimTransport(self.net, a), "coordinator",
+                       Coordinator(knobs), self.base)
+        self.worker_addrs = [NetworkAddress(f"10.0.2.{i + 1}", 5000)
+                             for i in range(n_workers)]
+        self.workers = [Worker(i, knobs, SimTransport(self.net, a),
+                               self.client_transport, self.base,
+                               fs=SimFileSystem(), device=dev)
+                        for i, a in enumerate(self.worker_addrs)]
+
+    def client_transport(self):
+        from foundationdb_tpu_torch.rpc.sim_transport import SimTransport
+        from foundationdb_tpu_torch.rpc.transport import NetworkAddress
+        self._port += 1
+        return SimTransport(self.net, NetworkAddress(
+            f"10.0.9.{self._port % 250}", self._port))
+
+    def coordinator_stubs(self, t=None):
+        from foundationdb_tpu_torch.rpc.stubs import CoordinatorClient
+        t = t or self.client_transport()
+        return [CoordinatorClient(t, a, self.base) for a in self.coord_addrs]
+
+    def make_cc(self):
+        from foundationdb_tpu_torch.core.cluster_controller import (
+            ClusterConfigSpec, ClusterController)
+        from foundationdb_tpu_torch.core.coordination import CoordinatedState
+        from foundationdb_tpu_torch.rpc.stubs import WorkerClient
+        ct = self.client_transport()
+        registry = {a: WorkerClient(ct, a, self.base)
+                    for a in self.worker_addrs}
+        return ClusterController(
+            self.knobs, ct, CoordinatedState(self.coordinator_stubs(ct),
+                                             my_id=999),
+            registry, ClusterConfigSpec(), self.base)
+
+    async def wait_epoch(self, n: int) -> dict:
+        from foundationdb_tpu_torch.core.cluster_client import \
+            fetch_cluster_state
+        from foundationdb_tpu_torch.runtime.errors import FdbError
+        stubs = self.coordinator_stubs()
+        while True:
+            try:
+                state = await fetch_cluster_state(stubs)
+                if state.get("epoch", 0) >= n:
+                    return state
+            except FdbError:
+                pass
+            await asyncio.sleep(0.2)
+
+    async def kill(self, addr) -> None:
+        """The machine dies: its network goes dark and its process (the
+        worker and every role it hosts) stops."""
+        self.net.kill(addr)
+        await self.workers[self.worker_addrs.index(addr)].shutdown()
+
+    def roles(self, name: str) -> list:
+        return [obj for a, w in zip(self.worker_addrs, self.workers)
+                if not self.net.is_dead(a)
+                for role, obj in w.roles.values() if role == name]
+
+
+def generations(record: list, stopped: set):
+    """Wraps Resolver.__init__, resolve and stop: every reply is recorded
+    as (generation, its first version, request, reply, answered after
+    the role stopped); ``stopped`` collects the stopped generations."""
+    import itertools
+
+    from foundationdb_tpu_torch.core.resolver import Resolver
+    ids = itertools.count()
+
+    def init(orig):
+        def initing(self, *a, **kw):
+            orig(self, *a, **kw)
+            self._smoke_gen = (next(ids), self.version)
+        return initing
+
+    def resolve(orig):
+        async def recording(self, req):
+            reply = await orig(self, req)
+            record.append((*self._smoke_gen, req, reply,
+                           self._smoke_gen[0] in stopped))
+            return reply
+        return recording
+
+    def stop(orig):
+        async def stopping(self):
+            stopped.add(self._smoke_gen[0])
+            await orig(self)
+        return stopping
+    stack = contextlib.ExitStack()
+    for name, make in (("__init__", init), ("resolve", resolve),
+                       ("stop", stop)):
+        stack.enter_context(wrapped(Resolver, name, make))
+    return stack
+
+
+def replay_generations(record: list) -> tuple[int, int]:
+    """Each generation's recorded requests, in version order, through a
+    fresh cpp Resolver that begins at the generation's first version:
+    (verdicts compared, mismatches)."""
+    from foundationdb_tpu_torch.core.resolver import Resolver
+
+    async def main():
+        n = bad = 0
+        for gen in sorted({r[0] for r in record}):
+            rows = sorted((r for r in record if r[0] == gen),
+                          key=lambda r: r[2].version)
+            res = Resolver(cluster_knobs("cpp"), epoch_begin_version=rows[0][1])
+            for _, _, req, reply, _ in rows:
+                got = (await res.resolve(req)).verdicts
+                n += len(got)
+                bad += sum(1 for a, b in zip(got, reply.verdicts) if a != b) \
+                    + abs(len(got) - len(reply.verdicts))
+            await res.close()
+        return n, bad
+    return asyncio.run(main())
+
+
+def cluster_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
+                  txns: int = 40) -> dict:
+    """Phase 18 under the port's run_simulation, every role on ``dev``:
+    recover epoch 1; load ``n_keys`` mako keys, run ``clients`` mako
+    clients of ``txns`` transactions (2 zipf reads, 2 writes); read every
+    key back in get_multi batches of 512 once the load has left the MVCC
+    window (the read mirror serves); kill the resolver's machine, then the
+    second TLog's, each followed by the next epoch and another mako
+    round; read every key back again and read ``\\xff\\xff/status/json``.
+    Returns what the checks need."""
+    import torch
+
+    from foundationdb_tpu_torch.bench.workload import ZipfianGenerator
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    from foundationdb_tpu_torch.core.cluster_client import (
+        RefreshingDatabase, open_cluster)
+    from foundationdb_tpu_torch.rpc.transport import NetworkAddress
+    from foundationdb_tpu_torch.runtime.errors import FdbError
+    from foundationdb_tpu_torch.runtime.simloop import run_simulation
+
+    def key(i: int) -> bytes:
+        return b"mako" + str(int(i)).zfill(28).encode()
+    knobs = cluster_knobs("cuda")
+    acked: dict[bytes, tuple[int, bytes]] = {}
+    unknown: set[bytes] = set()
+    out: dict = {"epochs": [], "memory": [], "reads": [], "codes": {}}
+
+    def allocated() -> int:
+        if dev.type != "cuda":
+            return 0
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    async def main():
+        sim = SimCluster(knobs, dev)
+        cc = sim.make_cc()
+        cc_task = asyncio.get_running_loop().create_task(cc.run())
+        state = await sim.wait_epoch(1)
+        out["epochs"].append((1, state["recovery_version"]))
+        ct = sim.client_transport()
+        stubs = sim.coordinator_stubs(ct)
+        db = RefreshingDatabase(await open_cluster(knobs, ct, stubs), stubs)
+        zipf = ZipfianGenerator(n_keys, 0.99, 7)
+
+        async def run(writes: dict) -> None:
+            tr = db.create_transaction()
+            while True:
+                try:
+                    for k, v in writes.items():
+                        tr.set(k, v)
+                    v = await tr.commit()
+                    for k, val in writes.items():
+                        if v > acked.get(k, (-1, b""))[0]:
+                            acked[k] = (v, val)
+                    return
+                except FdbError as e:
+                    out["codes"][e.code] = out["codes"].get(e.code, 0) + 1
+                    if e.code == 1021:      # commit_unknown_result
+                        unknown.update(writes)
+                        return
+                    await tr.on_error(e)
+
+        for c in range(0, n_keys, 256):
+            await run({key(i): b"load-%d" % i
+                       for i in range(c, min(c + 256, n_keys))})
+
+        async def mako(rnd: int) -> None:
+            async def client(cid):
+                for i in range(txns):
+                    ks = [int(x) for x in zipf.sample(4)]
+                    tr = db.create_transaction()
+                    try:
+                        await tr.get(key(ks[0]))
+                        await tr.get(key(ks[1]))
+                        val = b"%d:%d-%d" % (rnd, cid, i)
+                        tr.set(key(ks[2]), val)
+                        tr.set(key(ks[3]), val)
+                        v = await tr.commit()
+                        for k in (key(ks[2]), key(ks[3])):
+                            if v > acked[k][0]:
+                                acked[k] = (v, val)
+                    except FdbError as e:
+                        out["codes"][e.code] = out["codes"].get(e.code, 0) + 1
+                        if e.code == 1021:
+                            unknown.update((key(ks[2]), key(ks[3])))
+            await asyncio.gather(*(client(c) for c in range(clients)))
+
+        async def read_back() -> tuple[int, int]:
+            await asyncio.sleep(2.0)        # out of the MVCC window
+            keys = [key(i) for i in range(n_keys)]
+            bad = 0
+            for c in range(0, n_keys, 512):
+                while True:
+                    try:
+                        got = await Transaction(db.view).get_multi(
+                            keys[c:c + 512])
+                        break
+                    except FdbError as e:
+                        await db.refresh()
+                        await asyncio.sleep(0.1)
+                bad += sum(1 for k, g in zip(keys[c:c + 512], got)
+                           if k not in unknown and g != acked[k][1])
+            return len(keys) - len(unknown & set(keys)), bad
+
+        await mako(0)
+        out["reads"].append(await read_back())
+        out["memory"].append(allocated())
+        for n, role in ((2, "resolver"), (3, "tlog")):
+            victim = NetworkAddress(*(state["resolvers"][0]["addr"]
+                                      if role == "resolver" else
+                                      state["log_cfg"][-1]["tlogs"][1]))
+            if (victim.ip, victim.port) in {tuple(s["worker"])
+                                            for s in state["storage"]}:
+                fail(f"the {role}'s machine hosts a storage replica")
+            await sim.kill(victim)
+            state = await sim.wait_epoch(n)
+            out["epochs"].append((n, state["recovery_version"]))
+            await db.refresh()
+            await mako(n)
+            out["memory"].append(allocated())
+        out["reads"].append(await read_back())
+        tr = db.create_transaction()
+        while True:
+            try:
+                out["status"] = json.loads(
+                    await tr.get(b"\xff\xff/status/json"))
+                break
+            except FdbError as e:
+                await tr.on_error(e)
+        resolvers = sim.roles("resolver")
+        out["resolvers"] = len(resolvers)
+        cs = resolvers[0].backend.cs
+        out["ring_bytes"] = sum(t.numel() * t.element_size()
+                                for t in cs.state if torch.is_tensor(t))
+        out["mirrors"] = [ss._device_reads.metrics()
+                          for ss in sim.roles("storage")
+                          if ss._device_reads is not None]
+        out["acked"], out["unknown"] = len(acked), len(unknown)
+        cc_task.cancel()
+        await asyncio.gather(cc_task, return_exceptions=True)
+        await cc.stop()
+        for w in sim.workers:
+            await w.shutdown()
+
+    record: list = []
+    stopped: set = set()
+    calls, restore = held_to_plain()
+    t0 = time.perf_counter()
+    try:
+        with generations(record, stopped):
+            run_simulation(main(), seed=18)
+    finally:
+        restore()
+    out["seconds"] = time.perf_counter() - t0
+    out["record"], out["stopped"] = record, stopped
+    out["prefix_calls"] = calls
+    return out
+
+
+def check_cluster_phase(r: dict, got: dict, on_card: bool) -> None:
+    """Phase 18's checks (the launch counts only on the card)."""
+    err, lens = plain_err(r["prefix_calls"])
+    n_cmp, mism = replay_generations(r["record"])
+    gens = sorted({x[0] for x in r["record"]})
+    late = sum(1 for x in r["record"] if x[4])
+    doc = r["status"]["cluster"]
+    dv, mem = doc["resolver_device"], r["memory"]
+    say(f"cluster: epochs {r['epochs']} in {r['seconds']:.3f} s; "
+        f"acknowledged keys {r['acked']}, unknown results {r['unknown']}, "
+        f"aborts by code {r['codes']}; read-backs (keys, mismatches) "
+        f"{r['reads']}; {len(r['record'])} resolves over {len(gens)} "
+        f"resolver generations ({len(r['stopped'])} stopped), replayed "
+        f"through a fresh cpp Resolver each: {n_cmp} verdicts, "
+        f"mismatches={mism}; replies after their role stopped {late}; "
+        f"launches={got}")
+    say(f"cluster: {len(r['prefix_calls'])} prefix_search calls on mirrors "
+        f"of {lens} prefixes against the plain version: max_abs_err={err}; "
+        f"mirrors {json.dumps(r['mirrors'])}")
+    say(f"cluster status: epoch {doc['epoch']}, available "
+        f"{doc['database_available']}, resolver_device {json.dumps(dv)}, "
+        f"device_reads {json.dumps(doc['device_reads'])}")
+    say(f"cluster device memory: {mem} bytes allocated after epochs 1, 2, "
+        f"3 (one ring is {r['ring_bytes']} bytes); live resolvers "
+        f"{r['resolvers']}")
+    if mism or n_cmp == 0 or len(gens) < 3:
+        fail("a resolver generation's verdicts differ from the cpp replay, "
+             "or fewer than three generations resolved")
+    if err or any(bad for _, bad in r["reads"]) or r["unknown"]:
+        fail("prefix_search differs from its plain version, or an "
+             "acknowledged write did not read back")
+    if late:
+        fail("a resolver answered after its role stopped")
+    if doc["epoch"] < 3 or dv["pipelined_resolvers"] < 1 \
+            or dv["dispatches"] <= 0 or r["resolvers"] != 1:
+        fail("the status document does not show epoch 3 and a pipelined "
+             "resolver that dispatched, or the ended generations' "
+             "resolvers are still hosted")
+    if on_card:
+        if got["hist_check"] != got["commit_chain"] or \
+                got["commit_chain"] == 0 or got["prefix_search"] == 0 \
+                or len(r["prefix_calls"]) != got["prefix_search"]:
+            fail(f"the cluster launched {got}")
+        if max(mem) - min(mem) > r["ring_bytes"]:
+            fail(f"device memory grew across recoveries: {mem}")
+
+
+# --------------------------------------------------------------------------
+# phase 19: three server processes over TCP
+
+
+def tcp_phase(dev_name: str, clients: int = 64, txns: int = 50,
+              root: str | None = None) -> dict:
+    """Three ``python3 -m foundationdb_tpu_torch.server`` processes on
+    free localhost ports, all coordinators, ``--spec min_workers=3
+    --device <dev_name>``; a client here opens the cluster through the
+    coordinators over TcpTransport, commits ``clients`` x ``txns``
+    transactions (each reads one earlier key and writes its own), reads
+    every one back, reads and clears the range, and reads the status
+    document.  The servers are stopped with SIGTERM, then SIGKILL past a
+    deadline."""
+    import signal
+    import socket
+
+    from foundationdb_tpu_torch.core.cluster_client import (
+        RefreshingDatabase, open_cluster)
+    from foundationdb_tpu_torch.core.cluster_file import ClusterFile
+    from foundationdb_tpu_torch.rpc.stubs import make_coordinator_stubs
+    from foundationdb_tpu_torch.rpc.tcp_transport import TcpTransport
+    from foundationdb_tpu_torch.rpc.transport import NetworkAddress
+    from foundationdb_tpu_torch.runtime.errors import FdbError
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {"codes": {}}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        cf_path = os.path.join(tmp, "fdb.cluster")
+        ClusterFile("smoke", "t1", [NetworkAddress("127.0.0.1", p)
+                                    for p in ports]).save(cf_path)
+        logs = [os.path.join(tmp, f"server-{p}.log") for p in ports]
+        env = dict(os.environ, PYTHONPATH=repo)
+        procs = []
+        t_spawn = time.perf_counter()
+        try:
+            for p, lg in zip(ports, logs):
+                with open(lg, "ab") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "foundationdb_tpu_torch.server",
+                         "-C", cf_path, "-l", f"127.0.0.1:{p}",
+                         "--spec", "min_workers=3", "--device", dev_name],
+                        cwd=repo, env=env, stdout=f, stderr=subprocess.STDOUT))
+
+            async def drive():
+                knobs = Knobs()
+                t = TcpTransport(NetworkAddress("127.0.0.1", 0))
+                coords = make_coordinator_stubs(
+                    ClusterFile.load(cf_path).coordinators, transport=t)
+                deadline = time.perf_counter() + 180
+                while True:
+                    if any(p.poll() is not None for p in procs):
+                        fail("a server exited before the cluster "
+                             "recovered: " + " | ".join(
+                                 open(lg, errors="replace").read()[-800:]
+                                 for lg in logs))
+                    try:
+                        view = await open_cluster(knobs, t, coords)
+                        break
+                    except (FdbError, OSError):
+                        if time.perf_counter() > deadline:
+                            fail("no cluster state within 180 s")
+                        await asyncio.sleep(0.25)
+                db = RefreshingDatabase(view, coords)
+                await db.set(b"tcp-first", b"1")
+                out["recovery_s"] = time.perf_counter() - t_spawn
+                lat: list[float] = []
+                acked: dict[bytes, bytes] = {}
+
+                async def client(cid):
+                    for i in range(txns):
+                        k = b"tcp/%04d/%04d" % (cid, i)
+                        v = b"v%d-%d" % (cid, i)
+                        tr = db.create_transaction()
+                        t1 = time.perf_counter()
+                        while True:
+                            try:
+                                if i:
+                                    await tr.get(b"tcp/%04d/%04d"
+                                                 % (cid, i - 1))
+                                tr.set(k, v)
+                                await tr.commit()
+                                lat.append(time.perf_counter() - t1)
+                                acked[k] = v
+                                break
+                            except FdbError as e:
+                                out["codes"][e.code] = \
+                                    out["codes"].get(e.code, 0) + 1
+                                await tr.on_error(e)
+                t1 = time.perf_counter()
+                await asyncio.gather(*(client(c) for c in range(clients)))
+                out["commit_s"] = time.perf_counter() - t1
+                keys = sorted(acked)
+                bad = 0
+                for c in range(0, len(keys), 512):
+                    got = await db.create_transaction().get_multi(
+                        keys[c:c + 512])
+                    bad += sum(1 for k, g in zip(keys[c:c + 512], got)
+                               if g != acked[k])
+                rows = await db.get_range(b"tcp/", b"tcp0", limit=0)
+                await db.clear_range(b"tcp/", b"tcp0")
+                left = await db.get_range(b"tcp/", b"tcp0")
+                tr = db.create_transaction()
+                doc = json.loads(await tr.get(b"\xff\xff/status/json"))
+                await t.close()
+                lat.sort()
+                out.update(committed=len(lat), bad=bad,
+                           range_rows=len(rows),
+                           range_equal=rows == [(k, acked[k]) for k in keys],
+                           left=len(left), status=doc["cluster"],
+                           p50_ms=lat[len(lat) // 2] * 1e3,
+                           p99_ms=lat[int(len(lat) * 0.99)] * 1e3)
+            asyncio.run(asyncio.wait_for(drive(), 600))
+            out["alive"] = [p.poll() is None for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            deadline = time.time() + 15
+            for p in procs:
+                try:
+                    p.wait(timeout=max(0.1, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        out["exit_codes"] = [p.returncode for p in procs]
+        out["tracebacks"] = [lg for lg in logs
+                             if "Traceback" in open(lg, errors="replace")
+                             .read()]
+        out["log_tails"] = [open(lg, errors="replace").read()[-1500:]
+                            for lg in out["tracebacks"]]
+    return out
+
+
+def check_tcp_phase(r: dict, card: str) -> None:
+    c = r["status"]
+    dv = c["resolver_device"]
+    say(f"tcp: {r['committed']} transactions committed in "
+        f"{r['commit_s']:.3f} s = {r['committed'] / r['commit_s']:.1f} "
+        f"txns/s, client latency p50 {r['p50_ms']:.3f} ms p99 "
+        f"{r['p99_ms']:.3f} ms, retries by code {r['codes']} ({card})")
+    say(f"tcp: time to the first recovery (spawn to the first commit) "
+        f"{r['recovery_s']:.3f} s ({card})")
+    say(f"tcp: read back {r['committed']} keys with {r['bad']} mismatches; "
+        f"range read {r['range_rows']} rows (equal {r['range_equal']}), "
+        f"{r['left']} left after the clear; status epoch {c['epoch']}, "
+        f"available {c['database_available']}, resolver_device "
+        f"{json.dumps(dv)}; servers alive before teardown {r['alive']}, "
+        f"exit codes {r['exit_codes']}, logs with a traceback "
+        f"{len(r['tracebacks'])}")
+    for tail in r["log_tails"]:
+        say(f"tcp server log tail: {tail}")
+    if r["bad"] or not r["range_equal"] or r["left"] or r["committed"] == 0:
+        fail("the TCP cluster lost an acknowledged write or a clear")
+    if c["epoch"] != 1 or dv["pipelined_resolvers"] != 1 \
+            or dv["dispatches"] <= 0:
+        fail("the TCP cluster's status shows no pipelined resolver in "
+             "epoch 1 that dispatched")
+    if not all(r["alive"]) or r["tracebacks"] or any(r["exit_codes"]):
+        fail("a server died, logged a traceback or did not stop cleanly "
+             "on SIGTERM")
+
+
 def main() -> None:
     try:
         import torch
@@ -1518,6 +2073,8 @@ def main() -> None:
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     say(smi.stdout.strip())
+    global CARD
+    CARD = smi.stdout.strip()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
@@ -1797,12 +2354,28 @@ def main() -> None:
     got16 = parity_phase(dev, count_run)
     probe_phase()
 
+    # 18. the multi-role cluster through two recoveries; 19. three server
+    # processes over TCP.  The trace events of phase 18's roles and of
+    # phase 19's client go to a temporary file
+    trace_dir = tempfile.TemporaryDirectory()
+    set_trace_log(TraceLog(path=os.path.join(trace_dir.name, "sim.jsonl")))
+    t0 = time.perf_counter()
+    r18, got18 = count_run(lambda: cluster_phase(dev))
+    check_cluster_phase(r18, got18, True)
+    del r18
+    say(f"phase 18: {time.perf_counter() - t0:.1f} s ({CARD})")
+    t0 = time.perf_counter()
+    check_tcp_phase(tcp_phase("cuda"), CARD)
+    say(f"phase 19: {time.perf_counter() - t0:.1f} s ({CARD})")
+    set_trace_log(TraceLog())
+    trace_dir.cleanup()
+
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
-                *gots11, got12, *gots13, *gots14, *gots15, got16):
+                *gots11, got12, *gots13, *gots14, *gots15, got16, got18):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 18. the kernels line, then the result.  The resolver kernels'
+    # 20. the kernels line, then the result.  The resolver kernels'
     # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
     # 6), the one run that takes all three; prefix_search's are those of
     # the durable read-back (phase 12, every engine); each phase printed

@@ -152,21 +152,27 @@ class StorageServer:
         # arriving without a sampled client context
         from ..runtime.span import ServerSampler
         self._server_sampler = ServerSampler(namespace=2)
-        # device gather path for point-read serving: a device
-        # mirror of the engine's PackedKeyIndex answers get_values'
-        # missing-key pass with one vectorized searchsorted per batch.
-        # Engines without a packed index report inactive and the engine
-        # path serves.  The mirror lives on ``device`` (the CUDA card
-        # unless the caller passes the CPU).
+        self._device = device
         self._device_reads = None
-        if engine is not None and knobs.STORAGE_DEVICE_READ_SERVE:
-            from ..device.read_serve import DeviceReadServer
-            # version_fn feeds the staleness gauge:
-            # how many versions the mirror trails THIS server's tip
-            srv = DeviceReadServer(engine, knobs, device=device,
-                                   version_fn=lambda: self.version)
-            if srv.active:
-                self._device_reads = srv
+        self.arm_device_reads()
+
+    def arm_device_reads(self) -> None:
+        """The device gather path for point-read serving: a device
+        mirror of the engine's PackedKeyIndex answers get_values'
+        missing-key pass with one vectorized searchsorted per batch.
+        Engines without a packed index report inactive and the engine
+        path serves.  The mirror lives on the server's device (the CUDA
+        card unless the caller passes the CPU).  Called at construction,
+        and by a worker that attaches a durable engine to a freshly
+        recruited server after constructing it."""
+        if self.engine is None or not self.knobs.STORAGE_DEVICE_READ_SERVE:
+            return
+        from ..device.read_serve import DeviceReadServer
+        # version_fn feeds the staleness gauge:
+        # how many versions the mirror trails THIS server's tip
+        srv = DeviceReadServer(self.engine, self.knobs, device=self._device,
+                               version_fn=lambda: self.version)
+        self._device_reads = srv if srv.active else None
 
     def attach_dbuf_queue(self, queue) -> None:
         """Arm the durability ring's disk spill with a per-server

@@ -7,9 +7,11 @@ behind the same interface.  Here:
 
 - wire.py        — self-describing binary codec (ObjectSerializer analog)
 - transport.py   — Endpoint/NetworkAddress + the Transport interface
-
-The transports themselves (the simulated network, TCP, the role stubs)
-are not ported yet: the port's roles talk in process (ROADMAP A6).
+- sim_transport.py — deterministic in-memory network w/ latency, clogs,
+                     partitions (Sim2's SimClogging analog)
+- tcp_transport.py — real asyncio TCP framing
+- stubs.py       — RequestStream server loops + client proxies for roles
+- failure_monitor.py — ping-based peer liveness (and the degraded set)
 """
 
 from .transport import Endpoint, NetworkAddress, Transport
