@@ -125,11 +125,44 @@ commit and storage paths on the card and exits non-zero on any failure:
    1, a pipelined resolver that dispatched); txns/s, the client's
    p50/p99 and the time from spawn to the first commit; every server
    alive until SIGTERM, stopped cleanly by it, no traceback in any log;
-20. one JSON line with each kernel's launches (the resolver kernels' in
-   phase 6's run, prefix_search's in phase 12's), max error, times and
-   bound (K1 also its latency bound: B chain steps at the step time
-   measured in phase 3; B8 its latency bound: one probe's search chain
-   at N = 2**24 measured in phase 3); the last line is the result.
+20. two regions on the card (the layout of tests/test_regions.py: 6
+   machines in dc1, sat1 and dc2 with simulated disks, primary dc1 with
+   a satellite log, remote dc2, 2 logs, replication 1) through
+   ``sim.SimulatedCluster(device=...)`` at the device operating point:
+   4096 mako keys and a mako round; one log router per remote tag, each
+   in dc2, each frontier past its recruitment; dc2's read mirrors
+   against their engines; dc1 killed while two writers run; the epoch
+   whose TLogs are all in dc2; another mako round; every acknowledged
+   write read back from the promoted region (dc2's mirrors serve, every
+   prefix_search call equal to the plain version); each resolver
+   generation equal to a cpp replay; K3 = K1 > 0; the card's allocated
+   memory after each epoch within one ring's bytes;
+21. backup and point-in-time restore: phase 12's durable cluster
+   (memory engine, a real file system) with mako's 100000 keys;
+   ``Database.start_backup``; 64 mako clients for 3 s, every
+   acknowledged write kept with its commit version; ``stop_backup``;
+   restores into fresh durable clusters on the card, to the end and to
+   the middle of the write window: each keyspace equal, byte for byte
+   and by ``keyspace_digest``, to the rows expected at its version, and
+   read back through its mirror; the restores' fat transactions (decided
+   by the exact sidecar) and slim ones counted, their resolves equal to
+   a cpp replay;
+22. DR between two 4-machine SimulatedClusters sharing the card: a
+   DRAgent through a LogRouter over the source's network while 16 mako
+   clients write the source; the destination locked during DR, the
+   source after the switchover; every source row at the switchover
+   version equal on the destination; both clusters' resolver
+   generations equal to cpp replays; two live resolvers; then on the
+   promoted destination a transactional SecondaryIndex, a
+   LayerFeedConsumer with a WatchRegistry and a LayerConsistencyChecker
+   over 16 clients: 0 divergences, and the watch fires on its first
+   write;
+23. one JSON line with each kernel's launches (the resolver kernels' in
+   phase 6's run, prefix_search's in phase 12's, and phases 20-22's in
+   ``launches_by_phase``), max error, times and bound (K1 also its
+   latency bound: B chain steps at the step time measured in phase 3;
+   B8 its latency bound: one probe's search chain at N = 2**24 measured
+   in phase 3); the last line is the result.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1526,6 +1559,177 @@ def probe_phase() -> None:
 
 
 # --------------------------------------------------------------------------
+# mako clients, read-backs and device accounting for phases 18-22
+
+
+def mako_key(i: int) -> bytes:
+    """The mako keys of phases 18-22: 32 bytes."""
+    return b"mako" + str(int(i)).zfill(28).encode()
+
+
+class Mako:
+    """Mako clients over one database: each transaction reads two zipf
+    keys and writes two.  Every acknowledged write is kept in
+    ``history`` as (commit version, versionstamp, key, value) and the
+    newest per key in ``acked`` (transactions of one commit batch share
+    a version; the versionstamp orders them as the batch applied them);
+    a write whose outcome is unknown (commit_unknown_result,
+    or a transaction cut by its timeout) leaves its value in ``maybe``;
+    aborts are counted by code in ``codes``."""
+
+    def __init__(self, db, n_keys: int, seed: int = 7):
+        from foundationdb_tpu_torch.bench.workload import ZipfianGenerator
+        self.db, self.n_keys = db, n_keys
+        self.zipf = ZipfianGenerator(n_keys, 0.99, seed)
+        self.acked: dict[bytes, tuple[bytes, bytes]] = {}
+        self.maybe: dict[bytes, set] = {}
+        self.codes: dict = {}
+        self.history: list[tuple[int, bytes, bytes, bytes]] = []
+
+    def _ack(self, tr, writes: dict) -> None:
+        version, stamp = tr.get_committed_version(), tr.get_versionstamp()
+        for k, val in writes.items():
+            self.history.append((version, stamp, k, val))
+            if stamp > self.acked.get(k, (b"", b""))[0]:
+                self.acked[k] = (stamp, val)
+
+    def _failed(self, code, writes: dict) -> None:
+        self.codes[code] = self.codes.get(code, 0) + 1
+        if code in (1021, "timeout"):       # the write may have landed
+            for k, v in writes.items():
+                self.maybe.setdefault(k, set()).add(v)
+
+    async def _run(self, writes: dict, reads=()) -> bool:
+        """One attempt: ``reads``, then ``writes``, committed; True if
+        acknowledged."""
+        from foundationdb_tpu_torch.runtime.errors import FdbError
+        tr = self.db.create_transaction()
+        try:
+            for k in reads:
+                await tr.get(k)
+            for k, v in writes.items():
+                tr.set(k, v)
+            await tr.commit()
+            self._ack(tr, writes)
+            return True
+        except FdbError as e:
+            self._failed(e.code, writes)
+            try:
+                await tr.on_error(e)        # backoff; a new view after a
+            except FdbError:                # recovery
+                pass
+            return False
+
+    async def load(self, loaders: int = 1) -> None:
+        """Every key at ``load-<i>``, 256 a transaction, each retried
+        until it is acknowledged, from ``loaders`` concurrent loaders."""
+        starts = list(range(0, self.n_keys, 256))
+
+        async def loader(w):
+            for c in starts[w::loaders]:
+                writes = {mako_key(i): b"load-%d" % i for i in
+                          range(c, min(c + 256, self.n_keys))}
+                while not await self._run(writes):
+                    pass
+        await asyncio.gather(*(loader(w) for w in range(loaders)))
+
+    async def client(self, tag: bytes, cid: int, txns: int | None = None,
+                     until=None, timeout: float | None = None) -> None:
+        """``txns`` transactions, or until ``until()`` is true; with
+        ``timeout``, each is cut after that many seconds."""
+        i = 0
+        while (i < txns) if txns is not None else not until():
+            ks = [mako_key(x) for x in self.zipf.sample(4)]
+            val = b"%s:%d-%d" % (tag, cid, i)
+            i += 1
+            writes = {ks[2]: val, ks[3]: val}
+            if timeout is None:
+                await self._run(writes, ks[:2])
+                continue
+            try:
+                await asyncio.wait_for(self._run(writes, ks[:2]), timeout)
+            except asyncio.TimeoutError:
+                self._failed("timeout", writes)
+
+    async def round(self, tag: bytes, clients: int, txns: int) -> None:
+        await asyncio.gather(*(self.client(tag, c, txns)
+                               for c in range(clients)))
+
+    def expected(self, keys, at: int | None = None) -> dict:
+        """Each key's value at version ``at`` (the newest with None):
+        its load value, or the newest acknowledged write at or below."""
+        want = {k: b"load-%d" % i for i, k in enumerate(keys)}
+        newest: dict[bytes, bytes] = {}
+        for v, stamp, k, val in self.history:
+            if (at is None or v <= at) and stamp > newest.get(k, b""):
+                newest[k], want[k] = stamp, val
+        return want
+
+
+async def read_multi(db, keys: list, want: dict,
+                     maybe: dict | None = None) -> int:
+    """Every key read in ``get_multi`` batches of 512 through
+    ``db`` (a RefreshingDatabase, refreshed on an error, or a cluster):
+    the number of values that are neither ``want``'s nor one of the
+    key's ``maybe`` values (writes whose outcome was unknown)."""
+    maybe = maybe or {}
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    from foundationdb_tpu_torch.runtime.errors import FdbError
+    bad = 0
+    for c in range(0, len(keys), 512):
+        while True:
+            try:
+                got = await Transaction(getattr(db, "view", db)).get_multi(
+                    keys[c:c + 512])
+                break
+            except FdbError:
+                if hasattr(db, "refresh"):
+                    await db.refresh()
+                await asyncio.sleep(0.1)
+        bad += sum(1 for k, g in zip(keys[c:c + 512], got)
+                   if g != want.get(k) and g not in maybe.get(k, ()))
+    return bad
+
+
+async def read_pages(db, begin: bytes, end: bytes) -> list:
+    """Every row of [begin, end), 10000 rows a transaction, each at its
+    own read version (for a database no one writes, so no read falls
+    outside the MVCC window)."""
+    rows: list = []
+    while True:
+        got = await db.run(lambda tr, b=begin: tr.get_range(b, end,
+                                                            limit=10_000))
+        rows += [(bytes(k), bytes(v)) for k, v in got]
+        if len(got) < 10_000:
+            return rows
+        begin = bytes(got[-1][0]) + b"\x00"
+
+
+def launches(since: dict | None = None) -> dict:
+    """Each kernel's launch count, less ``since``'s."""
+    from foundationdb_tpu_torch.ops import kernels as K
+    return {k: v.launches - (since or {}).get(k, 0)
+            for k, v in K.KERNELS.items()}
+
+
+def device_allocated(dev) -> int:
+    """Bytes the caching allocator holds for live tensors on ``dev``,
+    after a collection (0 off the card)."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def ring_bytes(resolver) -> int:
+    import torch
+    return sum(t.numel() * t.element_size()
+               for t in resolver.backend.cs.state if torch.is_tensor(t))
+
+
+# --------------------------------------------------------------------------
 # phase 18: the multi-role cluster on the card, through two recoveries
 
 
@@ -1685,29 +1889,15 @@ def cluster_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
     second TLog's, each followed by the next epoch and another mako
     round; read every key back again and read ``\\xff\\xff/status/json``.
     Returns what the checks need."""
-    import torch
-
-    from foundationdb_tpu_torch.bench.workload import ZipfianGenerator
-    from foundationdb_tpu_torch.client.transaction import Transaction
     from foundationdb_tpu_torch.core.cluster_client import (
         RefreshingDatabase, open_cluster)
     from foundationdb_tpu_torch.rpc.transport import NetworkAddress
     from foundationdb_tpu_torch.runtime.errors import FdbError
     from foundationdb_tpu_torch.runtime.simloop import run_simulation
 
-    def key(i: int) -> bytes:
-        return b"mako" + str(int(i)).zfill(28).encode()
     knobs = cluster_knobs("cuda")
-    acked: dict[bytes, tuple[int, bytes]] = {}
-    unknown: set[bytes] = set()
-    out: dict = {"epochs": [], "memory": [], "reads": [], "codes": {}}
-
-    def allocated() -> int:
-        if dev.type != "cuda":
-            return 0
-        gc.collect()
-        torch.cuda.synchronize()
-        return torch.cuda.memory_allocated()
+    keys = [mako_key(i) for i in range(n_keys)]
+    out: dict = {"epochs": [], "memory": [], "reads": []}
 
     async def main():
         sim = SimCluster(knobs, dev)
@@ -1718,71 +1908,17 @@ def cluster_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
         ct = sim.client_transport()
         stubs = sim.coordinator_stubs(ct)
         db = RefreshingDatabase(await open_cluster(knobs, ct, stubs), stubs)
-        zipf = ZipfianGenerator(n_keys, 0.99, 7)
-
-        async def run(writes: dict) -> None:
-            tr = db.create_transaction()
-            while True:
-                try:
-                    for k, v in writes.items():
-                        tr.set(k, v)
-                    v = await tr.commit()
-                    for k, val in writes.items():
-                        if v > acked.get(k, (-1, b""))[0]:
-                            acked[k] = (v, val)
-                    return
-                except FdbError as e:
-                    out["codes"][e.code] = out["codes"].get(e.code, 0) + 1
-                    if e.code == 1021:      # commit_unknown_result
-                        unknown.update(writes)
-                        return
-                    await tr.on_error(e)
-
-        for c in range(0, n_keys, 256):
-            await run({key(i): b"load-%d" % i
-                       for i in range(c, min(c + 256, n_keys))})
-
-        async def mako(rnd: int) -> None:
-            async def client(cid):
-                for i in range(txns):
-                    ks = [int(x) for x in zipf.sample(4)]
-                    tr = db.create_transaction()
-                    try:
-                        await tr.get(key(ks[0]))
-                        await tr.get(key(ks[1]))
-                        val = b"%d:%d-%d" % (rnd, cid, i)
-                        tr.set(key(ks[2]), val)
-                        tr.set(key(ks[3]), val)
-                        v = await tr.commit()
-                        for k in (key(ks[2]), key(ks[3])):
-                            if v > acked[k][0]:
-                                acked[k] = (v, val)
-                    except FdbError as e:
-                        out["codes"][e.code] = out["codes"].get(e.code, 0) + 1
-                        if e.code == 1021:
-                            unknown.update((key(ks[2]), key(ks[3])))
-            await asyncio.gather(*(client(c) for c in range(clients)))
+        mk = Mako(db, n_keys)
+        await mk.load()
 
         async def read_back() -> tuple[int, int]:
             await asyncio.sleep(2.0)        # out of the MVCC window
-            keys = [key(i) for i in range(n_keys)]
-            bad = 0
-            for c in range(0, n_keys, 512):
-                while True:
-                    try:
-                        got = await Transaction(db.view).get_multi(
-                            keys[c:c + 512])
-                        break
-                    except FdbError as e:
-                        await db.refresh()
-                        await asyncio.sleep(0.1)
-                bad += sum(1 for k, g in zip(keys[c:c + 512], got)
-                           if k not in unknown and g != acked[k][1])
-            return len(keys) - len(unknown & set(keys)), bad
+            return n_keys, await read_multi(db, keys, mk.expected(keys),
+                                            mk.maybe)
 
-        await mako(0)
+        await mk.round(b"0", clients, txns)
         out["reads"].append(await read_back())
-        out["memory"].append(allocated())
+        out["memory"].append(device_allocated(dev))
         for n, role in ((2, "resolver"), (3, "tlog")):
             victim = NetworkAddress(*(state["resolvers"][0]["addr"]
                                       if role == "resolver" else
@@ -1794,8 +1930,8 @@ def cluster_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
             state = await sim.wait_epoch(n)
             out["epochs"].append((n, state["recovery_version"]))
             await db.refresh()
-            await mako(n)
-            out["memory"].append(allocated())
+            await mk.round(b"%d" % n, clients, txns)
+            out["memory"].append(device_allocated(dev))
         out["reads"].append(await read_back())
         tr = db.create_transaction()
         while True:
@@ -1807,13 +1943,12 @@ def cluster_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
                 await tr.on_error(e)
         resolvers = sim.roles("resolver")
         out["resolvers"] = len(resolvers)
-        cs = resolvers[0].backend.cs
-        out["ring_bytes"] = sum(t.numel() * t.element_size()
-                                for t in cs.state if torch.is_tensor(t))
+        out["ring_bytes"] = ring_bytes(resolvers[0])
         out["mirrors"] = [ss._device_reads.metrics()
                           for ss in sim.roles("storage")
                           if ss._device_reads is not None]
-        out["acked"], out["unknown"] = len(acked), len(unknown)
+        out["acked"], out["unknown"] = len(mk.acked), len(mk.maybe)
+        out["codes"] = mk.codes
         cc_task.cancel()
         await asyncio.gather(cc_task, return_exceptions=True)
         await cc.stop()
@@ -2050,6 +2185,607 @@ def check_tcp_phase(r: dict, card: str) -> None:
     if not all(r["alive"]) or r["tracebacks"] or any(r["exit_codes"]):
         fail("a server died, logged a traceback or did not stop cleanly "
              "on SIGTERM")
+
+
+# --------------------------------------------------------------------------
+# phases 20-22: the consumers of the commit stream on the card
+
+
+def sim_cluster(dev, knobs, **kw):
+    """The port's SimulatedCluster with every role on ``dev``, at
+    ``knobs``' resolver shapes (the device operating point: B = 64,
+    R = 8, a ring of 1 << 17).  Its constructor overrides the resolver's
+    shapes with the simulator's (16 txns of 4 ranges, a ring of
+    1 << 12); each machine's host reads ``sim.knobs`` when it starts, so
+    ``knobs`` go back after construction and before ``start()``."""
+    from foundationdb_tpu_torch.sim import SimulatedCluster
+    sim = SimulatedCluster(knobs, device=dev, **kw)
+    sim.knobs = knobs
+    return sim
+
+
+def live_roles(sim, name: str) -> list:
+    """(machine index, role object) for every ``name`` role a live
+    machine of ``sim`` hosts."""
+    return [(m.index, obj) for m in sim.machines
+            if m.alive and m.host is not None
+            for role, obj in m.host.worker.roles.values() if role == name]
+
+
+# the two-region layout of the reference's region tests
+# (tests/test_regions.py:23-31): the first three machines, the
+# coordinators, span all three datacenters
+DCIDS = ["dc1", "sat1", "dc2", "dc1", "dc2", "dc2"]
+REGIONS = [{"id": "dc1", "priority": 1, "satellite": "sat1",
+            "satellite_logs": 1},
+           {"id": "dc2", "priority": 0}]
+
+
+def regions_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
+                  txns: int = 40) -> dict:
+    """Phase 20 under the port's run_simulation, every role on ``dev``:
+    the two-region cluster (primary dc1 with a satellite log in sat1,
+    remote dc2; 2 logs, replication 1), each machine with a simulated
+    disk so every storage server's read mirror arms; ``n_keys`` mako
+    keys and a mako round; the log routers; dc2's mirrors against their
+    engines; dc1 killed while two writers run; the epoch whose TLogs are
+    all in dc2; another mako round; every acknowledged write read back
+    from the promoted region in get_multi batches of 512."""
+    from foundationdb_tpu_torch.core.cluster_controller import \
+        ClusterConfigSpec
+    from foundationdb_tpu_torch.runtime.simloop import run_simulation
+
+    out: dict = {"memory": []}
+
+    def dc_of(addr) -> str:
+        return DCIDS[int(addr[0].split(".")[-1]) - 1]
+
+    def mirrors(sim) -> dict:
+        by_dc: dict = {}
+        for i, ss in live_roles(sim, "storage"):
+            if ss._device_reads is not None:
+                by_dc.setdefault(DCIDS[i], []).append(
+                    ss._device_reads.metrics())
+        return by_dc
+
+    async def main():
+        sim = sim_cluster(dev, cluster_knobs("cuda"), n_machines=6,
+                          dcids=DCIDS,
+                          durable_storage=True,
+                          spec=ClusterConfigSpec(
+                              min_workers=6, logs=2, replication=1,
+                              regions=[dict(r) for r in REGIONS]))
+        await sim.start()
+        state = await sim.wait_epoch(1)
+        gen = state["log_cfg"][-1]
+        out["epoch1"] = {
+            "tlogs": [dc_of(a) for a in gen["tlogs"]],
+            "satellites": [dc_of(a) for a in gen["satellites"]],
+            "routers": sorted((r[0], dc_of(r[1:3])) for r in
+                              gen.get("routers", [])),
+            "remote_tags": sorted(s["tag"] for s in state["storage"]
+                                  if s["dcid"] == "dc2")}
+        db = await sim.database()
+        mk = Mako(db, n_keys)
+        await mk.load()
+        await mk.round(b"r0", clients, txns)
+        await asyncio.sleep(2.0)            # out of the MVCC window
+        keys = [mako_key(i) for i in range(n_keys)]
+        out["reads"] = [(n_keys, await read_multi(db, keys,
+                                                  mk.expected(keys),
+                                                  mk.maybe))]
+        out["memory"].append(device_allocated(dev))
+        out["routers"] = [(DCIDS[i], r.tag, r.metrics())
+                          for i, r in live_roles(sim, "log_router")]
+        # dc2's mirrors before the promotion, each against its engine
+        remote = [ss for i, ss in live_roles(sim, "storage")
+                  if DCIDS[i] == "dc2" and ss._device_reads is not None]
+        served = differ = 0
+        for ss in remote:
+            for c in range(0, n_keys, 512):
+                got = ss._device_reads.get_batch(keys[c:c + 512])
+                if got is not None:
+                    served += 1
+                    differ += sum(1 for a, b in zip(
+                        got, ss.engine.get_batch(keys[c:c + 512])) if a != b)
+        out["remote_before"] = (len(remote), served, differ)
+        out["mirrors_before"] = mirrors(sim)
+
+        stop = asyncio.Event()
+        writers = [asyncio.ensure_future(mk.client(
+            b"w", w, until=stop.is_set, timeout=30.0)) for w in range(2)]
+        await asyncio.sleep(2.0)
+        pre_kill = len(mk.history)
+        await sim.kill_dc("dc1")
+        state2 = await sim.wait_state(
+            lambda s: s["epoch"] > state["epoch"]
+            and all(dc_of(a) == "dc2" for a in s["log_cfg"][-1]["tlogs"]))
+        await db.refresh()
+        await asyncio.sleep(2.0)            # writes land after the failover
+        stop.set()
+        await asyncio.gather(*writers)
+        out["writes"] = (pre_kill, len(mk.history))
+        await mk.round(b"r2", clients, txns)
+        out["memory"].append(device_allocated(dev))
+        out["epoch2"] = {"epoch": state2["epoch"],
+                         "tlogs": [dc_of(a) for a in
+                                   state2["log_cfg"][-1]["tlogs"]],
+                         "primary_dc": state2.get("primary_dc")}
+        await asyncio.sleep(2.0)
+        db2 = await sim.database()
+        out["reads"].append((n_keys, await read_multi(
+            db2, keys, mk.expected(keys), mk.maybe)))
+        out["mirrors_after"] = mirrors(sim)
+        resolvers = live_roles(sim, "resolver")
+        out["resolvers"] = [(DCIDS[i], ring_bytes(r)) for i, r in resolvers]
+        out["acked"], out["unknown"] = len(mk.acked), len(mk.maybe)
+        out["codes"] = mk.codes
+        await sim.stop()
+
+    record: list = []
+    stopped: set = set()
+    calls, restore = held_to_plain()
+    t0 = time.perf_counter()
+    try:
+        with generations(record, stopped):
+            run_simulation(main(), seed=20)
+    finally:
+        restore()
+    out["seconds"] = time.perf_counter() - t0
+    out["record"], out["stopped"] = record, stopped
+    out["prefix_calls"] = calls
+    return out
+
+
+def check_regions_phase(r: dict, got: dict, on_card: bool) -> int:
+    """Phase 20's checks (the launch counts and memory only on the
+    card); returns prefix_search's largest error against its plain
+    version."""
+    err, lens = plain_err(r["prefix_calls"])
+    n_cmp, mism = replay_generations(r["record"])
+    gens = sorted({x[0] for x in r["record"]})
+    late = sum(1 for x in r["record"] if x[4])
+    e1, e2 = r["epoch1"], r["epoch2"]
+    served_after = sum(m["device_read_batches"]
+                       for m in r["mirrors_after"].get("dc2", []))
+    say(f"regions: epoch 1 TLogs in {e1['tlogs']}, satellites in "
+        f"{e1['satellites']}, log routers (tag, dc) {e1['routers']} for the "
+        f"remote tags {e1['remote_tags']}; router frontiers "
+        f"{[(dc, t, m['end'], max(m['pops'].values())) for dc, t, m in r['routers']]}"
+        f"; dc1 killed with {r['writes'][0]} writes acknowledged, "
+        f"{r['writes'][1]} after the failover; epoch {e2['epoch']} TLogs in "
+        f"{e2['tlogs']} (primary {e2['primary_dc']}) in {r['seconds']:.3f} s")
+    say(f"regions: acknowledged keys {r['acked']}, unknown results "
+        f"{r['unknown']}, aborts by code {r['codes']}; read-backs (keys, "
+        f"mismatches) {r['reads']}; dc2's mirrors before the promotion "
+        f"(servers, batches served, differences from the engine) "
+        f"{r['remote_before']}; {len(r['record'])} resolves over "
+        f"{len(gens)} resolver generations ({len(r['stopped'])} stopped), "
+        f"replayed through a fresh cpp Resolver each: {n_cmp} verdicts, "
+        f"mismatches={mism}; replies after their role stopped {late}; "
+        f"launches={got}")
+    say(f"regions: {len(r['prefix_calls'])} prefix_search calls on mirrors "
+        f"of {lens} prefixes against the plain version: max_abs_err={err}; "
+        f"mirrors before {json.dumps(r['mirrors_before'])}; after "
+        f"{json.dumps(r['mirrors_after'])}")
+    say(f"regions device memory: {r['memory']} bytes allocated after epochs "
+        f"1 and 2; live resolvers (dc, ring bytes) {r['resolvers']}")
+    if e1["tlogs"] != ["dc1"] * len(e1["tlogs"]) or \
+            e1["satellites"] != ["sat1"] * len(e1["satellites"]) or \
+            not e1["satellites"] or \
+            [t for t, _ in e1["routers"]] != e1["remote_tags"] or \
+            any(dc != "dc2" for _, dc in e1["routers"]) or \
+            not e1["remote_tags"]:
+        fail("the two-region recovery did not recruit its TLogs in dc1, a "
+             "satellite in sat1 and one log router in dc2 per remote tag")
+    if len(r["routers"]) != len(e1["remote_tags"]) or any(
+            m["end"] <= 1 or max(m["pops"].values()) <= 1
+            for _, _, m in r["routers"]):
+        fail("a log router's frontier did not move past its recruitment")
+    if e2["tlogs"] != ["dc2"] * len(e2["tlogs"]) or r["writes"][1] <= \
+            r["writes"][0]:
+        fail("the failover did not promote dc2, or nothing committed "
+             "after it")
+    if mism or n_cmp == 0 or len(gens) < 2 or late:
+        fail("a resolver generation's verdicts differ from the cpp replay, "
+             "fewer than two generations resolved, or a resolver answered "
+             "after its role stopped")
+    if err or any(bad for _, bad in r["reads"]) or r["remote_before"][2]:
+        fail("prefix_search differs from its plain version, a remote "
+             "mirror from its engine, or an acknowledged write did not "
+             "read back")
+    if on_card:
+        if got["hist_check"] != got["commit_chain"] or \
+                got["commit_chain"] == 0 or got["prefix_search"] == 0 \
+                or len(r["prefix_calls"]) != got["prefix_search"]:
+            fail(f"the two-region cluster launched {got}")
+        if r["remote_before"][1] == 0 or served_after == 0:
+            fail("dc2's read mirrors served nothing before or after the "
+                 f"promotion: {r['remote_before']}, {r['mirrors_after']}")
+        if max(r["memory"]) - min(r["memory"]) > \
+                max(b for _, b in r["resolvers"]):
+            fail(f"device memory grew across the failover: {r['memory']}")
+    return err
+
+
+# phase 12's durable cluster, with the backup's mako traffic
+BACKUP_CLIENTS, BACKUP_SECONDS = 64, 3.0
+
+
+def backup_phase(dev, n_keys: int = DURABLE_KEYS,
+                 clients: int = BACKUP_CLIENTS,
+                 seconds: float = BACKUP_SECONDS,
+                 root: str | None = None) -> dict:
+    """Phase 21: phase 12's durable in-process cluster (memory engine, a
+    real file system, every role on ``dev``) loaded with mako's
+    ``n_keys`` keys; ``Database.start_backup`` into a container on the
+    same file system; ``clients`` mako clients for ``seconds`` with
+    every acknowledged write kept with its commit version;
+    ``stop_backup``; then two restores, each into a fresh durable
+    cluster on ``dev``: to the end, and to a version in the middle of
+    the write window.  Each restored keyspace is read whole and by
+    get_multi batches of 512 (the restored cluster's mirror serves).
+    Every resolve of the restores is recorded for a cpp replay."""
+    from foundationdb_tpu_torch.backup.container import keyspace_digest
+    from foundationdb_tpu_torch.client.database import Database
+    from foundationdb_tpu_torch.core.cluster import Cluster, ClusterConfig
+    from foundationdb_tpu_torch.runtime.files import RealFileSystem
+
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+
+    # the restored clusters keep phase 12's 0.1 s MVCC window, so their
+    # rows reach the engine (and its mirror) 2 s after the restore; the
+    # source keeps the default 5 s, since the backup's snapshot reads
+    # the whole keyspace at one version
+    knobs = _durable_knobs("memory")
+    src_knobs = knobs.override(
+        STORAGE_VERSION_WINDOW=Knobs().STORAGE_VERSION_WINDOW)
+    keys = [mako_key(i) for i in range(n_keys)]
+    out: dict = {"restores": {}, "n_keys": n_keys, "clients": clients,
+                 "seconds": seconds}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        fs = RealFileSystem(tmp)
+
+        async def source():
+            cluster = await Cluster.create(ClusterConfig(), src_knobs,
+                                           fs=fs, data_dir="src", device=dev)
+            cluster.start()
+            db = Database(cluster)
+            mk = Mako(db, n_keys)
+            t0 = time.perf_counter()
+            await mk.load(loaders=32)
+            out["load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            agent = await db.start_backup(fs, "backup")
+            out["snapshot_s"] = time.perf_counter() - t0
+            out["snapshot_version"] = agent.last_snapshot_version
+            first = len(mk.history)
+            end = time.perf_counter() + seconds
+            await asyncio.gather(*(mk.client(b"b", c, until=lambda:
+                                             time.perf_counter() > end)
+                                   for c in range(clients)))
+            out["frontier"] = await db.stop_backup("backup")
+            await cluster.stop()
+            window = sorted(v for v, _, _, _ in mk.history[first:])
+            out["writes"] = len(window)
+            out["codes"], out["unknown"] = mk.codes, len(mk.maybe)
+            return mk, window
+
+        mk, window = asyncio.run(source())
+        mid = window[len(window) // 2]
+        out["mid"], out["last"] = mid, window[-1]
+        for name, to in (("end", None), ("mid", mid)):
+            want = mk.expected(keys, at=to)
+            record: list = []
+
+            async def restore():
+                cluster = await Cluster.create(
+                    ClusterConfig(), knobs, fs=fs, data_dir=f"dst-{name}",
+                    device=dev)
+                cluster.start()
+                db = Database(cluster)
+                before = launches()
+                t0 = time.perf_counter()
+                await db.restore(fs, "backup", to_version=to)
+                r = {"restore_s": time.perf_counter() - t0,
+                     "launches": launches(before)}
+                rows = await read_pages(db, b"", b"\xff")
+                r["rows"] = len(rows)
+                r["equal"] = dict(rows) == want
+                r["digest"] = keyspace_digest(rows)
+                await asyncio.sleep(2.0)    # out of the MVCC window
+                before = launches()
+                calls, undo = held_to_plain()
+                t0 = time.perf_counter()
+                try:
+                    r["read_bad"] = await read_multi(cluster, keys, want)
+                finally:
+                    undo()
+                r["read_s"] = time.perf_counter() - t0
+                r["read_launches"] = launches(before)
+                r["prefix_calls"] = calls
+                r["mirrors"] = [ss._device_reads.metrics()
+                                if ss._device_reads is not None else None
+                                for ss in cluster.storage_servers]
+                await cluster.stop()
+                return r
+
+            with generations(record, set()):
+                r = asyncio.run(restore())
+            r["want_digest"] = keyspace_digest(sorted(want.items()))
+            reqs = [x[2] for x in record]
+            r["fat"] = sum(1 for req in reqs for t in req.txns
+                           if len(t.read_ranges) > R
+                           or len(t.write_ranges) > R)
+            r["slim"] = sum(len(req.txns) for req in reqs) - r["fat"]
+            r["resolves"] = len(record)
+            r["replay"] = replay_generations(record)
+            out["restores"][name] = r
+    return out
+
+
+def check_backup_phase(r: dict, on_card: bool) -> int:
+    """Phase 21's checks (the launch counts only on the card); returns
+    prefix_search's largest error against its plain version."""
+    say(f"backup: {r['n_keys']} keys loaded in {r['load_s']:.3f} s; "
+        f"start_backup's snapshot at version {r['snapshot_version']} in "
+        f"{r['snapshot_s']:.3f} s; {r['clients']} mako clients for "
+        f"{r['seconds']} s: {r['writes']} acknowledged writes, aborts by "
+        f"code {r['codes']}, unknown results {r['unknown']}; stop_backup "
+        f"drained through {r['frontier']} (last write {r['last']}); the "
+        f"middle of the write window is version {r['mid']}")
+    for name, x in r["restores"].items():
+        err, lens = plain_err(x["prefix_calls"])
+        x["plain_err"] = err
+        say(f"restore to {name}: {x['rows']} rows in {x['restore_s']:.3f} "
+            f"s through {x['resolves']} resolves ({x['fat']} fat txns "
+            f"decided by the exact sidecar, {x['slim']} slim by K3/K1; "
+            f"launches {x['launches']}); equal to the expected rows "
+            f"{x['equal']}, digest {x['digest']} (expected "
+            f"{x['want_digest']}); cpp replay (verdicts, mismatches) "
+            f"{x['replay']}; read back by get_multi in {x['read_s']:.3f} s, "
+            f"mismatches {x['read_bad']}, launches {x['read_launches']}, "
+            f"{len(x['prefix_calls'])} prefix_search calls on mirrors of "
+            f"{lens} prefixes against the plain version: max_abs_err={err}"
+            f"; mirrors {json.dumps(x['mirrors'])}")
+        if not x["equal"] or x["digest"] != x["want_digest"] or \
+                x["read_bad"] or x["rows"] != r["n_keys"]:
+            fail(f"the restore to {name} differs from the rows expected at "
+                 "its version")
+        if x["replay"][1] or x["replay"][0] == 0 or err:
+            fail(f"the restore to {name}'s verdicts differ from a cpp "
+                 "replay, or prefix_search from its plain version")
+        if on_card:
+            got, rd = x["launches"], x["read_launches"]
+            if got["hist_check"] != got["commit_chain"] or \
+                    got["commit_chain"] == 0 or rd["prefix_search"] == 0 \
+                    or len(x["prefix_calls"]) != rd["prefix_search"]:
+                fail(f"the restore to {name} launched {got}, its "
+                     f"read-back {rd}")
+    if r["unknown"] or r["writes"] == 0 or r["frontier"] < r["last"]:
+        fail("a write's outcome was unknown, nothing was written during "
+             "the backup, or stop_backup drained short of the last write")
+    ends = r["restores"]
+    if on_card and ends["mid"]["want_digest"] == ends["end"]["want_digest"]:
+        fail("the write window's middle and end hold the same rows, so "
+             "the point-in-time restore was not put to the test")
+    return max(x["plain_err"] for x in r["restores"].values())
+
+
+def dr_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
+             txns: int = 40) -> dict:
+    """Phase 22 under the port's run_simulation: a source and a
+    destination SimulatedCluster of 4 machines each, every role of both
+    on ``dev``; ``n_keys`` mako keys on the source; a DRAgent pulling
+    the DR tag through a LogRouter served over the source's simulated
+    network while ``clients`` mako clients write the source; the
+    switchover; then, on the promoted destination, a transactional
+    SecondaryIndex, a LayerFeedConsumer with a WatchRegistry, and a
+    LayerConsistencyChecker over ``clients`` mako-shaped clients writing
+    through the index."""
+    from foundationdb_tpu_torch.backup.dr import DR_TAG, DRAgent
+    from foundationdb_tpu_torch.backup.stream import commit_tag
+    from foundationdb_tpu_torch.client.subspace import Subspace
+    from foundationdb_tpu_torch.core.cluster_controller import \
+        ClusterConfigSpec
+    from foundationdb_tpu_torch.core.data import SYSTEM_PREFIX
+    from foundationdb_tpu_torch.core.log_router import (LogRouter,
+                                                        RouterStream)
+    from foundationdb_tpu_torch.layers import (LayerConsistencyChecker,
+                                               LayerFeedConsumer,
+                                               SecondaryIndex, WatchRegistry)
+    from foundationdb_tpu_torch.rpc.sim_transport import SimTransport
+    from foundationdb_tpu_torch.rpc.stubs import LogRouterClient, serve_role
+    from foundationdb_tpu_torch.rpc.transport import (WLTOKEN_FIRST_AVAILABLE,
+                                                      NetworkAddress)
+    from foundationdb_tpu_torch.rpc.wire import encode
+    from foundationdb_tpu_torch.runtime.errors import DatabaseLocked, FdbError
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.simloop import run_simulation
+
+    out: dict = {"memory": [], "n_keys": n_keys}
+    # the DR agent's first copy reads the source at one version page by
+    # page, so the MVCC window stays the default (5 s of versions), not
+    # phase 18's 0.1 s
+    knobs = cluster_knobs("cuda").override(STORAGE_VERSION_WINDOW=Knobs()
+                                           .STORAGE_VERSION_WINDOW)
+
+    async def read_all(db, at=None) -> dict:
+        tr = db.create_transaction()
+        tr.lock_aware = True
+        while True:
+            try:
+                if at is not None:
+                    tr.set_read_version(at)
+                return dict(await tr.get_range(b"", SYSTEM_PREFIX, limit=0,
+                                               snapshot=True))
+            except FdbError as e:
+                await tr.on_error(e)
+
+    async def locked(db) -> bool:
+        tr = db.create_transaction()
+        tr.set(b"smoke-probe", b"x")
+        try:
+            await tr.commit()
+            return False
+        except DatabaseLocked:
+            return True
+
+    async def main():
+        sims = [sim_cluster(dev, knobs, n_machines=4,
+                            spec=ClusterConfigSpec(min_workers=4))
+                for _ in range(2)]
+        for s in sims:
+            await s.start()
+        for s in sims:
+            await s.wait_epoch(1)
+        src_sim, dest_sim = sims
+        src, dest = await src_sim.database(), await dest_sim.database()
+        mk = Mako(src, n_keys)
+        await mk.load()
+
+        va = await commit_tag(src, "dr", encode(DR_TAG))
+        router = LogRouter(src, DR_TAG, va + 1, ["dr-agent"])
+        router.start()
+        raddr = NetworkAddress("10.1.0.99", 4500)
+        serve_role(SimTransport(src_sim.net, raddr), "log_router", router,
+                   WLTOKEN_FIRST_AVAILABLE)
+        rclient = LogRouterClient(
+            SimTransport(src_sim.net, NetworkAddress("10.1.0.98", 4501)),
+            raddr, WLTOKEN_FIRST_AVAILABLE)
+        dr = DRAgent(src, dest, stream_factory=lambda _db, _tag, begin:
+                     RouterStream(rclient, "dr-agent", begin))
+        await dr.start()
+        out["memory"].append(device_allocated(dev))
+        out["dest_locked_during"] = await locked(dest)
+        await mk.round(b"d", clients, txns)
+        out["router"] = router.metrics()
+        vd = await dr.switchover()
+        expected = await read_all(src, at=vd)
+        got = await read_all(dest)
+        got.pop(b"\xff/dr/applied", None)
+        out["switchover"] = (vd, len(expected), got == expected,
+                             sum(1 for k in expected if got.get(k) !=
+                                 expected[k]) + len(set(got) - set(expected)))
+        out["source_locked_after"] = await locked(src)
+        out["dest_locked_after"] = await locked(dest)
+        await router.stop()
+        resolvers = live_roles(src_sim, "resolver") + \
+            live_roles(dest_sim, "resolver")
+        out["resolvers"] = [ring_bytes(r) for _, r in resolvers]
+        out["memory"].append(device_allocated(dev))
+        out["acked"], out["unknown"] = len(mk.acked), len(mk.maybe)
+        out["codes"] = mk.codes
+
+        # the layers on the promoted destination
+        consumer = LayerFeedConsumer(dest, name="smoke")
+        watches = WatchRegistry(dest, consumer)
+        index = SecondaryIndex(dest, Subspace(raw_prefix=b"idx/"),
+                               primary_begin=b"lay/", primary_end=b"lay0",
+                               mode="transactional",
+                               extractor=lambda k, v: [v[:6]])
+        checker = LayerConsistencyChecker(dest, index=index,
+                                          watches=watches)
+        await consumer.start()
+        watched = b"lay/%08d" % 0
+        fut = await watches.watch(watched)
+        fired_before = fut.done()
+        zipf = mk.zipf
+        writes = [0]
+
+        async def layer_client(cid):
+            for i in range(txns):
+                ks = [b"lay/%08d" % int(x) for x in zipf.sample(2)]
+                val = b"b%02d-%d" % ((cid + i) % 17, i)
+
+                async def body(tr, ks=ks, val=val):
+                    await tr.get(ks[0])
+                    tr.set(ks[0], val)
+                    tr.set(ks[1], val)
+                await index.run(body)
+                writes[0] += 1
+        await asyncio.gather(*(layer_client(c) for c in range(clients)))
+
+        async def touch(tr):
+            tr.set(watched, b"b99-watched")
+        await index.run(touch)
+        tr = dest.create_transaction()
+        tip = await tr.get_read_version()
+        tr.reset()
+        await consumer.wait_frontier(tip, timeout=120)
+        await asyncio.sleep(0.5)
+        out["watch"] = (fired_before, fut.done())
+        verdict = None
+        for _ in range(20):
+            verdict = await checker.check()
+            if not verdict["index"]["refused"]:
+                break
+            await asyncio.sleep(0.5)
+        out["verdict"] = verdict
+        out["layer_writes"] = writes[0]
+        out["index_stats"] = index.stats()
+        await consumer.stop(destroy=True)
+        for s in sims:
+            await s.stop()
+
+    record: list = []
+    stopped: set = set()
+    t0 = time.perf_counter()
+    with generations(record, stopped):
+        run_simulation(main(), seed=22)
+    out["seconds"] = time.perf_counter() - t0
+    out["record"], out["stopped"] = record, stopped
+    return out
+
+
+def check_dr_phase(r: dict, got: dict, on_card: bool) -> None:
+    """Phase 22's checks (the launch counts and memory only on the
+    card)."""
+    n_cmp, mism = replay_generations(r["record"])
+    gens = sorted({x[0] for x in r["record"]})
+    late = sum(1 for x in r["record"] if x[4])
+    vd, n_rows, equal, differ = r["switchover"]
+    v = r["verdict"]
+    say(f"dr: destination locked during DR {r['dest_locked_during']}; "
+        f"router {json.dumps(r['router'])}; switchover at version {vd}: "
+        f"{n_rows} source rows, destination equal {equal} ({differ} "
+        f"differ); source locked after {r['source_locked_after']}, "
+        f"destination writable {not r['dest_locked_after']}; acknowledged "
+        f"keys {r['acked']}, unknown results {r['unknown']}, aborts by "
+        f"code {r['codes']}; {len(r['record'])} resolves over {len(gens)} "
+        f"resolver generations, replayed through a fresh cpp Resolver "
+        f"each: {n_cmp} verdicts, mismatches={mism}; replies after their "
+        f"role stopped {late}; launches={got}; {r['seconds']:.3f} s")
+    say(f"dr layers on the promoted destination: {r['layer_writes']} index "
+        f"transactions, index {json.dumps(r['index_stats'])}; checker "
+        f"divergences {v['divergences']} (index {json.dumps(v['index'])}, "
+        f"watches {json.dumps(v['watches'])}); watch fired before its "
+        f"first write {r['watch'][0]}, after it {r['watch'][1]}")
+    say(f"dr device memory: {r['memory']} bytes allocated with both "
+        f"clusters up and after the switchover; live resolvers' ring bytes "
+        f"{r['resolvers']}")
+    if not r["dest_locked_during"] or not r["source_locked_after"] or \
+            r["dest_locked_after"]:
+        fail("the destination was not locked during DR, the source not "
+             "after the switchover, or the destination stayed locked")
+    if not equal or differ or n_rows < r["n_keys"] or r["unknown"]:
+        fail("the destination differs from the source at the switchover "
+             "version")
+    if mism or n_cmp == 0 or len(gens) < 2 or late:
+        fail("a resolver generation's verdicts differ from the cpp replay, "
+             "or a resolver answered after its role stopped")
+    if v is None or v["divergences"] or v["index"]["refused"] or \
+            r["watch"] != (False, True) or r["layer_writes"] == 0:
+        fail(f"the layers diverged, the checker refused, or the watch did "
+             f"not fire on its first write: {v}, {r['watch']}")
+    if len(r["resolvers"]) != 2:
+        fail(f"{len(r['resolvers'])} live resolvers for two clusters")
+    if on_card:
+        if got["hist_check"] != got["commit_chain"] or \
+                got["commit_chain"] == 0:
+            fail(f"the two clusters launched {got}")
+        if max(r["memory"]) - min(r["memory"]) > max(r["resolvers"]):
+            fail(f"device memory grew across the switchover: {r['memory']}")
 
 
 def main() -> None:
@@ -2367,20 +3103,46 @@ def main() -> None:
     t0 = time.perf_counter()
     check_tcp_phase(tcp_phase("cuda"), CARD)
     say(f"phase 19: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+    # 20. two regions and the primary region's loss; 21. backup and
+    # point-in-time restore; 22. DR between two clusters on the card, and
+    # the layers on the promoted destination.  Their roles' trace events
+    # go to the same temporary file
+    t0 = time.perf_counter()
+    r20, got20 = count_run(lambda: regions_phase(dev))
+    err20 = check_regions_phase(r20, got20, True)
+    del r20
+    say(f"phase 20: {time.perf_counter() - t0:.1f} s ({CARD})")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r21, got21 = count_run(lambda: backup_phase(dev, root=tmp))
+    err21 = check_backup_phase(r21, True)
+    del r21
+    say(f"phase 21: launches {got21}; {time.perf_counter() - t0:.1f} s "
+        f"({CARD})")
+    t0 = time.perf_counter()
+    r22, got22 = count_run(lambda: dr_phase(dev))
+    check_dr_phase(r22, got22, True)
+    del r22
+    say(f"phase 22: {time.perf_counter() - t0:.1f} s ({CARD})")
     set_trace_log(TraceLog())
     trace_dir.cleanup()
+    report["prefix_search"]["max_abs_err"] = max(
+        report["prefix_search"]["max_abs_err"], err20, err21)
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
-                *gots11, got12, *gots13, *gots14, *gots15, got16, got18):
+                *gots11, got12, *gots13, *gots14, *gots15, got16, got18,
+                got20, got21, got22):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 20. the kernels line, then the result.  The resolver kernels'
+    # 23. the kernels line, then the result.  The resolver kernels'
     # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
     # 6), the one run that takes all three; prefix_search's are those of
     # the durable read-back (phase 12, every engine); each phase printed
-    # its own counts above.
-    launches = dict(got7, prefix_search=got12["prefix_search"])
+    # its own counts above, and phases 20-22's stand in each row too.
+    counts = dict(got7, prefix_search=got12["prefix_search"])
+    by_phase = {"20": got20, "21": got21, "22": got22}
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),
@@ -2395,7 +3157,9 @@ def main() -> None:
     for name, (src, repl) in meta.items():
         r = report[name]
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches[name],
+                     "replaces": repl, "launches": counts[name],
+                     "launches_by_phase": {p: g[name]
+                                           for p, g in by_phase.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -6,7 +6,8 @@ imports ``torch`` and numpy and nothing of ``jax`` or
 ``foundationdb_tpu``: the jax-free modules it needs are its own copies.
 
 Ported so far, the resolver's conflict-detection path, the in-process
-commit path around it, and the multi-process cluster:
+commit path around it, the multi-process cluster, and the consumers of
+the commit stream:
   runtime/   event loop, sim, knobs, trace, errors, RNG (copies)
   ops/       key encoding, batch format, the conflict core on torch
              (conflict_torch), its hand kernels (kernels + csrc/*.cu),
@@ -17,12 +18,18 @@ commit path around it, and the multi-process cluster:
              storage server, ratekeeper; the shared data types; the
              multi-process roles (coordination, workers, the cluster
              controller and its recovery, data distribution, the
-             scrubber, status)
+             scrubber, status); the remote region's log router
   storage/   the MVCC window and the storage engines (copies)
   rpc/       the wire codec, the simulated and TCP transports, the role
              stubs, the failure monitor (copies)
   client/    Database / Transaction with read-your-writes, special keys,
-             the tuple, subspace and directory layers (copies)
+             the tuple, subspace and directory layers, the API-version
+             gate (copies)
+  backup/    feed-native backup and point-in-time restore, the task
+             bucket, the raw tag stream, cluster-to-cluster DR (copies)
+  layers/    read-through cache, watches, the shared feed consumer,
+             secondary indexes, the layer consistency checker (copies)
+  sim/       the simulated cluster: machines, kills, reboots, regions
   server.py  one cluster process: ``python -m foundationdb_tpu_torch.server
              -C fdb.cluster -l IP:PORT [--device cuda|cpu]``
   native/    the C++ conflict set and key codec, built with g++ into

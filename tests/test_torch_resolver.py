@@ -169,3 +169,87 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert len(_port_sources()) > 20
     assert not bad, bad
+
+
+def _bound_names(path: str) -> set:
+    """The names a module binds at its top level (definitions,
+    assignments, imports), including those bound inside top-level
+    ``if``/``try`` blocks."""
+    names = set()
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = node.targets if isinstance(node, ast.Assign) \
+                    else [node.target]
+                for t in targets:
+                    names.update(n.id for n in ast.walk(t)
+                                 if isinstance(n, ast.Name))
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                names.update((a.asname or a.name).split(".")[0]
+                             for a in node.names)
+            elif isinstance(node, (ast.If, ast.Try)):
+                visit(node.body)
+                visit(node.orelse)
+                for h in getattr(node, "handlers", []):
+                    visit(h.body)
+    visit(ast.parse(open(path).read(), path).body)
+    return names
+
+
+def _module_file(parts: list) -> str | None:
+    base = os.path.join(ROOT, *parts)
+    for p in (base + ".py", os.path.join(base, "__init__.py")):
+        if os.path.isfile(p):
+            return p
+    return None
+
+
+def test_port_has_no_dangling_imports():
+    """Every import of the port's own modules, the lazy ones inside
+    functions included, names a module of the port that exists and, for
+    ``from m import x``, an ``x`` that ``m`` binds or a submodule."""
+    pkg = os.path.join(ROOT, "foundationdb_tpu_torch")
+    bad, seen = [], 0
+    for path in _port_sources():
+        rel = os.path.relpath(path, ROOT)
+        here = rel[:-3].split(os.sep)
+        if here[-1] == "__init__":
+            here = here[:-1]
+        else:
+            here = here[:-1]        # the package the module lies in
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                if node.level:
+                    base = here[:len(here) - (node.level - 1)]
+                else:
+                    base = []
+                mod = base + (node.module.split(".") if node.module else [])
+                if mod[:1] != ["foundationdb_tpu_torch"]:
+                    continue
+                seen += 1
+                target = _module_file(mod)
+                if target is None:
+                    bad.append(f"{rel}:{node.lineno}: no module "
+                               f"{'.'.join(mod)}")
+                    continue
+                names = _bound_names(target)
+                for a in node.names:
+                    if a.name != "*" and a.name not in names and \
+                            _module_file(mod + [a.name]) is None:
+                        bad.append(f"{rel}:{node.lineno}: "
+                                   f"{'.'.join(mod)} has no {a.name}")
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    mod = a.name.split(".")
+                    if mod[0] == "foundationdb_tpu_torch":
+                        seen += 1
+                        if _module_file(mod) is None:
+                            bad.append(f"{rel}:{node.lineno}: no module "
+                                       f"{a.name}")
+    assert os.path.isdir(pkg) and seen > 500
+    assert not bad, bad

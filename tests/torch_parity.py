@@ -1,15 +1,29 @@
-"""A fixture the port's parity tests share.
+"""What the port's parity tests share.
 
 Each package keeps BUGGIFY's switch in a module-level flag
 (``runtime/buggify.py``), so a test that turns it on and leaves it on
 changes every later simulation in the same worker process.  A parity
 test runs the reference and the port under one seed and holds their
 results equal, so both must run under the same fault injection: none.
+The selected client API version (``client/multiversion.py``) is such a
+flag too.
+
+Beside the fixtures: the multi-process cluster of either package
+(``package``, ``SimCluster``, ``HostCluster``), and the reference's own
+test scenarios run against either package with what they showed
+recorded (``run_reference_test``).
 """
 
 import asyncio
+import contextlib
+import dataclasses
+import enum
+import functools
 import importlib
+import inspect
 import itertools
+import os
+import re
 import types
 
 import pytest
@@ -29,6 +43,30 @@ def buggify_off():
     for m, on in zip((ref, port), was):
         m.enable_buggify(on)
 
+
+
+@pytest.fixture(autouse=True)
+def api_version_reset():
+    """Both packages' selected client API version unset before and after
+    the test."""
+    mods = [importlib.import_module(f"{p}.client.multiversion") for p in
+            ("foundationdb_tpu", "foundationdb_tpu_torch")]
+    for m in mods:
+        m._reset_api_version_for_tests()
+    yield
+    for m in mods:
+        m._reset_api_version_for_tests()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in parallel worker processes: one CPU thread each
+    for torch's ops keeps these tests from starving their neighbours."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # --------------------------------------------------------------------------
 # the multi-process cluster of either package, on its simulated network
@@ -239,3 +277,213 @@ class HostCluster:
     def storage_objects(self) -> list:
         return [obj for h in self.hosts
                 for role, obj in h.worker.roles.values() if role == "storage"]
+
+
+# --------------------------------------------------------------------------
+# the reference's own test scenarios, run against either package
+
+REF, PORT = "foundationdb_tpu", "foundationdb_tpu_torch"
+_TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+def reference_module(file: str, name: str) -> types.ModuleType:
+    """The reference's test module ``file`` with every import of the JAX
+    package pointed at package ``name``: its scenarios, its seeds and
+    its own assertions, run against either package."""
+    path = os.path.join(_TESTS, file)
+    with open(path) as f:
+        src = f.read()
+    if name != REF:
+        src = re.sub(r"\bfoundationdb_tpu\b", name, src)
+    mod = types.ModuleType(f"_{name}_{file[:-3]}")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+def plain(x, depth: int = 0):
+    """``x`` as plain data for comparison across the two packages: their
+    classes differ by module, so an object becomes its class name and,
+    for dataclasses and named tuples, its fields."""
+    if x is None or isinstance(x, (bool, int, float, str, bytes)):
+        return x
+    if isinstance(x, (bytearray, memoryview)):
+        return bytes(x)
+    if isinstance(x, enum.Enum):
+        return (type(x).__name__, x.name)
+    if isinstance(x, BaseException):
+        return (type(x).__name__, getattr(x, "code", None))
+    if depth > 6:
+        return type(x).__name__
+    if hasattr(x, "_fields") and isinstance(x, tuple):
+        return (type(x).__name__,
+                [plain(v, depth + 1) for v in x])
+    if isinstance(x, (list, tuple)):
+        return [plain(v, depth + 1) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted((plain(v, depth + 1) for v in x), key=repr)
+    if isinstance(x, dict):
+        return {plain(k, depth + 1): plain(v, depth + 1)
+                for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,
+                {f.name: plain(getattr(x, f.name), depth + 1)
+                 for f in dataclasses.fields(x)})
+    if hasattr(x, "tolist"):
+        return x.tolist()
+    return type(x).__name__
+
+
+# what a scenario shows, in order: every read, read version and commit
+# version its transactions returned, every cluster state it waited for
+# (the epoch and the recruited layout), and what every public method of
+# the backup, DR, log-router and layer classes returned or raised
+RECORDED = {
+    "client.transaction.Transaction": ("get", "get_range",
+                                       "get_read_version", "commit"),
+    "sim.cluster_sim.SimulatedCluster": ("wait_state",),
+    "backup.agent.BackupAgent": None,
+    "backup.container.BackupContainer": None,
+    "backup.task_bucket.TaskBucket": None,
+    "backup.dr.DRAgent": None,
+    "backup.stream.TagStream": None,
+    "core.log_router.LogRouter": None,
+    "layers.cache.ReadThroughCache": None,
+    "layers.watches.WatchRegistry": None,
+    "layers.feed_consumer.LayerFeedConsumer": None,
+    "layers.index.SecondaryIndex": None,
+    "layers.checker.LayerConsistencyChecker": None,
+}
+
+
+def _recording(fn, label: str, log: list):
+    if inspect.iscoroutinefunction(fn):
+        async def wrapper(*a, **kw):
+            try:
+                r = await fn(*a, **kw)
+            except BaseException as e:
+                log.append((label, "raised", plain(e)))
+                raise
+            log.append((label, plain(r)))
+            return r
+    else:
+        def wrapper(*a, **kw):
+            try:
+                r = fn(*a, **kw)
+            except BaseException as e:
+                log.append((label, "raised", plain(e)))
+                raise
+            log.append((label, plain(r)))
+            return r
+    return functools.wraps(fn)(wrapper)
+
+
+def record(mp, name: str, log: list) -> list:
+    """Patch package ``name`` (through ``mp``, a pytest MonkeyPatch) so
+    that what its scenarios show goes into ``log``; returns the list
+    that collects every ``SimFileSystem`` the scenario makes."""
+    for path, names in RECORDED.items():
+        mod, cls_name = path.rsplit(".", 1)
+        cls = getattr(importlib.import_module(f"{name}.{mod}"), cls_name)
+        if names is None:
+            names = [n for n, v in vars(cls).items()
+                     if inspect.isfunction(v) and not n.startswith("_")]
+        for n in names:
+            mp.setattr(cls, n, _recording(getattr(cls, n),
+                                          f"{cls_name}.{n}", log))
+    disks = []
+    fs_cls = importlib.import_module(f"{name}.runtime.files").SimFileSystem
+    init = fs_cls.__init__
+
+    def fs_init(self, *a, **kw):
+        init(self, *a, **kw)
+        disks.append(self)
+    mp.setattr(fs_cls, "__init__", fs_init)
+    return disks
+
+
+def patch_port(mp, device=None, retire: bool = True) -> None:
+    """The port's clusters, simulated and in-process, on ``device`` (the
+    CPU by default, where their resolvers' and read mirrors' plain
+    versions answer) unless a scenario names one.  With ``retire``
+    false, the port's controller does not stop an ended generation's
+    resolvers after a recovery (which the reference never does): the
+    retire RPC draws from the simulated network, so without it a
+    scenario with recoveries runs event for event as the reference's."""
+    import torch
+    device = device or torch.device("cpu")
+    for path in ("core.cluster.Cluster", "sim.cluster_sim.SimulatedCluster"):
+        mod, cls_name = path.rsplit(".", 1)
+        cls = getattr(importlib.import_module(f"{PORT}.{mod}"), cls_name)
+
+        def init(self, *a, _init=cls.__init__, **kw):
+            if kw.get("device") is None:
+                kw["device"] = device
+            _init(self, *a, **kw)
+        mp.setattr(cls, "__init__", init)
+    if not retire:
+        cc = importlib.import_module(f"{PORT}.core.cluster_controller")
+
+        async def keep(self, prev_state):
+            return None
+        mp.setattr(cc.ClusterController, "_retire_resolvers", keep)
+
+
+@contextlib.contextmanager
+def captured_trace(name: str):
+    """The reference tests' ``captured_trace`` fixture for package
+    ``name``: every INFO-or-worse trace event, as dicts."""
+    tr = importlib.import_module(f"{name}.runtime.trace")
+    events: list[dict] = []
+    sink = tr.TraceLog(min_severity=tr.Severity.INFO)
+    sink.sink = events.append
+    prev = tr.get_trace_log()
+    tr.set_trace_log(sink)
+    try:
+        yield events
+    finally:
+        tr.set_trace_log(prev)
+
+
+def run_reference_test(file: str, test: str, name: str, mp,
+                       device=None, retire: bool = True) -> dict:
+    """Run the reference's ``file::test`` against package ``name`` with
+    its own assertions; return what it showed: the transcript, each
+    simulated disk's bytes, and the LayerMismatch events it traced.
+    The port runs as ``patch_port(device, retire)`` sets it."""
+    mod = reference_module(file, name)
+    fn = getattr(mod, test)
+    log: list = []
+    with mp.context() as m:
+        disks = record(m, name, log)
+        if name == PORT:
+            patch_port(m, device, retire)
+        with captured_trace(name) as events:
+            if "captured_trace" in inspect.signature(fn).parameters:
+                fn(captured_trace=events)
+            else:
+                fn()
+    return {"transcript": log,
+            "disks": [{p: bytes(b) for p, b in fs.disks.items()}
+                      for fs in disks],
+            "mismatches": [plain(e) for e in events
+                           if e.get("Type") == "LayerMismatch"]}
+
+
+def reference_cases(cases: dict) -> list:
+    """``{file: [test, ...]}`` as pytest parameters ``(file, test)``."""
+    return [pytest.param(f, t, id=f"{f[5:-3]}::{t[5:]}")
+            for f, tests in cases.items() for t in tests]
+
+
+def assert_same(ref: dict, port: dict) -> None:
+    """Two ``run_reference_test`` results equal, naming the first
+    divergent event or file when they are not."""
+    for i, (a, b) in enumerate(zip(ref["transcript"], port["transcript"])):
+        assert a == b, f"event {i}: reference {a!r:.400} port {b!r:.400}"
+    assert len(ref["transcript"]) == len(port["transcript"])
+    assert len(ref["disks"]) == len(port["disks"])
+    for i, (a, b) in enumerate(zip(ref["disks"], port["disks"])):
+        assert sorted(a) == sorted(b), f"disk {i}: {sorted(set(a) ^ set(b))}"
+        assert [p for p in a if a[p] != b[p]] == [], f"disk {i} bytes"
+    assert ref == port
