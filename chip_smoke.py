@@ -15,7 +15,9 @@ commit and storage paths on the card and exits non-zero on any failure:
    B = 64 and 100 under both rules, writing into a hot-buffer view; K2
    on the hot-buffer view; K3 under both rules on the resolver's own
    cold ring + hot buffer, with the inputs deciding the window (fast_ok)
-   and the full side, and on a lone ring; B8 (the read mirror's prefix
+   and the full side, and on a lone ring; K1 and K3 again at the
+   simulator's shapes (B = 16, R = 4, 16-byte keys, a lone ring of
+   1 << 12 slots), as phases 23-24 launch them; B8 (the read mirror's prefix
    search) at N = 2**24 and 2**24 - 3 prefixes and 512 and 4096
    probes, and on mirrors of 100001, 1 and 0 prefixes, with the
    torch.searchsorted pair beside it;
@@ -157,12 +159,31 @@ commit and storage paths on the card and exits non-zero on any failure:
    LayerFeedConsumer with a WatchRegistry and a LayerConsistencyChecker
    over 16 clients: 0 divergences, and the watch fires on its first
    write;
-23. one JSON line with each kernel's launches (the resolver kernels' in
-   phase 6's run, prefix_search's in phase 12's, and phases 20-22's in
+23. the seeded chaos run (sim/run_one.simulate: 7 machines,
+   replication 2, the 24-workload chaos mix) at the simulator's own
+   resolver shapes (16 txns of 4 ranges, 16-byte keys, a ring of
+   1 << 12), every resolver and read mirror on the card: seeds 0 and 17
+   with two kills under BUGGIFY, seed 101 with one kill and no BUGGIFY,
+   seed 0 on a durable cluster under hostile disks; each run's
+   invariants hold, its results equal the same seed's on the CPU (the
+   plain versions), seed 0's trace file hashes the same on both and on
+   the card twice, K3 = K1 > 0, every prefix_search call equals the
+   plain version, and the card's allocated memory after the run is
+   within one ring's bytes of before;
+24. the spec files (sim/spec.run_spec at seed 0): cycle_restart.toml (a
+   durable cluster power-killed and restarted under a bumped protocol,
+   the snapshot read back through a new and the multi-version client),
+   backup_dr_chaos.toml (backup and DR under attrition; every live
+   resolver during DR, the destination cluster's too, a cuda backend on
+   the card), region_chaos.toml and engine_migration_chaos.toml; each
+   spec's checks pass and its results equal the CPU run's;
+25. one JSON line with each kernel's launches (the resolver kernels' in
+   phase 6's run, prefix_search's in phase 12's, and phases 20-24's in
    ``launches_by_phase``), max error, times and bound (K1 also its
    latency bound: B chain steps at the step time measured in phase 3;
    B8 its latency bound: one probe's search chain at N = 2**24 measured
-   in phase 3); the last line is the result.
+   in phase 3; K1 and K3 their times at the simulator's shapes); the
+   last line is the result.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -198,6 +219,16 @@ TPCC_CLIENTS = 128
 # phase 18: more keys than a memory engine holds pending before its key
 # index takes a base run (1024), so the read mirror serves
 CLUSTER_KEYS = 4096
+# phases 23-24: the simulator's own resolver shapes (sim/cluster_sim.py:
+# 16 txns of 4 ranges, 16-byte keys, a ring of 1 << 12 slots, which
+# leaves no room for a window); the chaos runs (seed, kills, BUGGIFY,
+# fault profile): the reference test's passing seeds, a run without
+# BUGGIFY, and a durable cluster under hostile disks; the spec files
+SIM_B, SIM_R, SIM_WIDTH, SIM_RING = 16, 4, 16, 1 << 12
+CHAOS_RUNS = [(0, 2, True, None), (17, 2, True, None),
+              (101, 1, False, None), (0, 2, True, "disk")]
+SPECS = ["cycle_restart.toml", "backup_dr_chaos.toml", "region_chaos.toml",
+         "engine_migration_chaos.toml"]
 CARD = ""          # nvidia-smi's name and power limit, set by main
 
 
@@ -259,21 +290,21 @@ def _rand_keys(g, n: int, maxlen: int, alphabet: int = 3) -> list[bytes]:
 
 
 def _ranges(g, kc, n: int, points: bool, wide: float = 0.1,
-            alphabet: int = 3):
+            alphabet: int = 3, width: int = WIDTH):
     """n encoded ranges [n, L] (begin, end), u32, of random keys (some
-    longer than WIDTH, so the truncation rules are exercised): points,
-    or intervals of which a share ``wide`` spans between two random keys
-    and the rest are narrow [k, k+"\\x01")."""
-    a = _rand_keys(g, n, WIDTH + 8, alphabet)
+    longer than ``width``, so the truncation rules are exercised):
+    points, or intervals of which a share ``wide`` spans between two
+    random keys and the rest are narrow [k, k+"\\x01")."""
+    a = _rand_keys(g, n, width + 8, alphabet)
     if points:
         b = [k + b"\x00" for k in a]
     else:
-        c = _rand_keys(g, n, WIDTH + 8, alphabet)
+        c = _rand_keys(g, n, width + 8, alphabet)
         wide = g.random(n) < wide
         b = [max(x, y) + b"\x00" if w else x + b"\x01"
              for x, y, w in zip(a, c, wide)]
         a = [min(x, y) if w else x for x, y, w in zip(a, c, wide)]
-    return kc.encode_keys(a, WIDTH), kc.encode_keys(b, WIDTH)
+    return kc.encode_keys(a, width), kc.encode_keys(b, width)
 
 
 def _lanes_needed(a, b, L):
@@ -409,7 +440,8 @@ def kernel_phase(dev, report: dict) -> None:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, library_ms=lib_ms, **extra)
+                     bound_by=bound_by, library_ms=lib_ms)
+        r.update(extra)
 
     def bound(nbytes, ops):
         tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -591,8 +623,111 @@ def kernel_phase(dev, report: dict) -> None:
         K.hist_check(rb, re, sn, WIDTH, points, hit, [cold])
         want = K.hist_check_plain(rb, re, *cold, sn, WIDTH, points)
         note("hist_check", int((hit - want.to(torch.int32)).abs().max()))
+    sim_shapes_kernels(dev, note, bound)
     torch.cuda.synchronize()
     prefix_search_phase(dev, note)
+
+
+def sim_shapes_kernels(dev, note, bound) -> None:
+    """K1 and K3 at the simulator's resolver shapes, as phases 23 and 24
+    launch them (sim/cluster_sim.py: 16 txns of 4 ranges, 16-byte keys so
+    L = 5 lanes, a ring of 1 << 12 slots and so no window; every batch
+    takes resolve_core's single-batch path): K1 writing its slab into
+    fresh [L, B*R] planes and, for a padding batch, with no slab; K3 over
+    the one ring segment.  Both rules, tolerance 0, with times and
+    bounds beside the operating point's."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import keycode as kc
+    from foundationdb_tpu_torch.ops import kernels as K
+    from foundationdb_tpu_torch.ops.conflict_torch import map_lanes
+
+    g = np.random.default_rng(1616)
+    Bs, Rs, Ws, C = SIM_B, SIM_R, SIM_WIDTH, SIM_RING
+    L = kc.nlanes(Ws)
+
+    def rows(points, wide=0.1, alphabet=3):
+        rb_, re_ = _ranges(g, kc, Bs * Rs, points, wide, alphabet, Ws)
+        rb_, re_ = rb_.reshape(Bs, Rs, L), re_.reshape(Bs, Rs, L)
+        pad = g.random((Bs, Rs)) < 0.5
+        rb_[pad] = 0xFFFFFFFF
+        re_[pad] = 0xFFFFFFFF
+        return [torch.from_numpy(map_lanes(x)).to(dev) for x in (rb_, re_)]
+
+    def snaps(lo, hi):
+        kind = g.random(Bs)
+        s = np.where(kind < 0.1, -1, g.integers(lo, hi, size=Bs))
+        return torch.from_numpy(s.astype(np.int64)).to(dev)
+
+    floor = torch.tensor([100], dtype=torch.int64, device=dev)
+    for points in (True, False):
+        # K1
+        rb, re = rows(points)
+        wb, we = rows(points)
+        hit = torch.from_numpy((g.random(Bs) < 0.1).astype(np.int32)).to(dev)
+        snap = snaps(50, 200)
+        args = (rb, re, wb, we, hit, snap, floor, Ws, points)
+        verd = torch.empty(Bs, dtype=torch.int8, device=dev)
+        comm = torch.empty(Bs, dtype=torch.bool, device=dev)
+        sb = torch.full((L, Bs * Rs), 7, dtype=torch.int32, device=dev)
+        se = torch.full_like(sb, 7)
+        v, c, pb, pe = K.commit_chain_plain(*args)
+        K.commit_chain(*args, verd, comm, slab=(sb, se, None))
+        err = max(int((verd.long() - v.long()).abs().max()),
+                  int((comm.long() - c.long()).abs().max()),
+                  int((sb.long() - pb.long()).abs().max()),
+                  int((se.long() - pe.long()).abs().max()))
+        verd.fill_(9)
+        K.commit_chain(*args, verd, comm)           # a padding batch
+        err = max(err, int((verd.long() - v.long()).abs().max()))
+        ms, call = time_cuda(lambda: K.commit_chain(
+            *args, verd, comm, slab=(sb, se, None)))
+        pms, _ = time_cuda(lambda: K.commit_chain_plain(*args), reps=2,
+                           rounds=3)
+        k = 2 if points else 3
+        nbytes = 4 * k * Bs * Rs * L + 12 * Bs + 2 * Bs + 2 * 4 * L * Bs * Rs
+        ops = k1_ops(rb, re, wb, we, hit, snap, floor, points)
+        bms, by = bound(nbytes, ops)
+        say(f"kernel commit_chain sim shapes B={Bs} R={Rs} L={L} "
+            f"points={points}: max_abs_err={err} verdicts(committed, "
+            f"conflict, too_old)={torch.bincount(v.long(), minlength=3).tolist()}"
+            f" ms={ms:.6f} call_ms={call:.6f} plain_ms={pms:.6f} "
+            f"bound_ms={bms:.8f} ({by}; {nbytes} bytes, {ops} lane compares)")
+        note("commit_chain", err)
+        if points:
+            note("commit_chain", err, sim_shapes=dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by))
+        # K3: the ring of C slots (versions rising through [0, 10000), the
+        # oldest sixteenth never written), the reads' snapshots across it
+        hb, he = _ranges(g, kc, C, points, 0.0, 6, Ws)
+        hv = np.sort(g.integers(0, 10_000, size=C))
+        hv[:C // 16] = -1
+        ring = (torch.from_numpy(map_lanes(hb.T.copy())).to(dev),
+                torch.from_numpy(map_lanes(he.T.copy())).to(dev),
+                torch.from_numpy(hv).to(dev))
+        rb, re = rows(points, 0.01, 6)
+        sn = snaps(0, 10_000)
+        hit = torch.zeros(Bs, dtype=torch.int32, device=dev)
+        K.hist_check(rb, re, sn, Ws, points, hit, [ring])
+        want = K.hist_check_plain(rb, re, *ring, sn, Ws, points)
+        err = int((hit - want.to(torch.int32)).abs().max())
+        ms, call = time_cuda(
+            lambda: K.hist_check(rb, re, sn, Ws, points, hit, [ring]))
+        pms, _ = time_cuda(lambda: K.hist_check_plain(
+            rb, re, *ring, sn, Ws, points), reps=2, rounds=3)
+        k = 1 if points else 2
+        newer = (ring[2][None, :] > sn[:, None]).sum(1)
+        ops = int((_live(rb, points).sum(1) * newer).sum())
+        nbytes = C * (8 + 4 * k * L) + 4 * k * Bs * Rs * L + 12 * Bs
+        bms, by = bound(nbytes, ops)
+        say(f"kernel hist_check sim shapes B={Bs} R={Rs} L={L} ring={C} "
+            f"points={points}: max_abs_err={err} hits={int(want.sum())}/{Bs}"
+            f" ms={ms:.6f} call_ms={call:.6f} plain_ms={pms:.6f} "
+            f"bound_ms={bms:.8f} ({by}; {nbytes} bytes, {ops} lane compares)")
+        note("hist_check", err)
+        if points:
+            note("hist_check", err, sim_shapes=dict(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by))
 
 
 def prefix_search_phase(dev, note) -> None:
@@ -2788,6 +2923,236 @@ def check_dr_phase(r: dict, got: dict, on_card: bool) -> None:
             fail(f"device memory grew across the switchover: {r['memory']}")
 
 
+# --------------------------------------------------------------------------
+# phase 23: the seeded chaos run on the card; phase 24: the spec files
+
+
+def sim_run(main, dev, seed: int, trace_path: str) -> dict:
+    """``main()`` (a coroutine of the port's simulation entry points)
+    under the port's run_simulation at ``seed``, from a fresh process's
+    state: BUGGIFY off, no client API version selected, the span rollup,
+    span ids and the transactions' class-wide probe ids at zero (the
+    trace's span and trace ids and every role's status metrics read
+    them), every trace event to ``trace_path``.  Returns its
+    result, seconds, Resolver.resolve calls, kernel launches, every
+    prefix_search call's error against the plain version, the card's
+    allocated bytes before and after (after a collection), the highest
+    epoch a recovery reached, and the trace file's SHA-256; BUGGIFY is
+    off again after it."""
+    import hashlib
+
+    from foundationdb_tpu_torch.client.multiversion import \
+        _reset_api_version_for_tests
+    from foundationdb_tpu_torch.client.transaction import Transaction
+    from foundationdb_tpu_torch.core.resolver import Resolver
+    from foundationdb_tpu_torch.ops import kernels as K
+    from foundationdb_tpu_torch.runtime import span
+    from foundationdb_tpu_torch.runtime.buggify import enable_buggify
+    from foundationdb_tpu_torch.runtime.simloop import run_simulation
+    from foundationdb_tpu_torch.runtime.trace import (TraceLog,
+                                                      get_trace_log,
+                                                      set_trace_log)
+    enable_buggify(False)
+    _reset_api_version_for_tests()
+    span.reset_totals()
+    Transaction._probe_counter = 0
+    resolves = [0]
+
+    def counting(orig):
+        async def resolve(self, req):
+            resolves[0] += 1
+            return await orig(self, req)
+        return resolve
+
+    before = device_allocated(dev)
+    prev, log = get_trace_log(), TraceLog(path=trace_path)
+    set_trace_log(log)
+    K.reset_launches()
+    calls, restore = held_to_plain()
+    t0 = time.perf_counter()
+    try:
+        with wrapped(Resolver, "resolve", counting):
+            result = run_simulation(main(), seed=seed)
+        sync(dev)
+    finally:
+        seconds = time.perf_counter() - t0
+        restore()
+        enable_buggify(False)
+        log.close()
+        set_trace_log(prev)
+    out = {"result": result, "seconds": seconds, "resolves": resolves[0],
+           "launches": {k: v.launches for k, v in K.KERNELS.items()},
+           "prefix_calls": len(calls), "prefix_err": plain_err(calls)[0]}
+    del calls
+    out["memory"] = (before, device_allocated(dev))
+    with open(trace_path, "rb") as f:
+        blob = f.read()
+    out["sha256"] = hashlib.sha256(blob).hexdigest()
+    out["epoch"] = max((e.get("Epoch", 0) for e in map(
+        json.loads, blob.splitlines()) if e["Type"] == "RecoveryState"),
+        default=0)
+    return out
+
+
+def sim_ring_bytes() -> int:
+    """One resolver ring's bytes at the simulator's shapes: begin and
+    end lanes [L, C] int32 and versions [C] int64."""
+    L = SIM_WIDTH // 4 + 1
+    return 2 * L * SIM_RING * 4 + SIM_RING * 8
+
+
+def chaos_phase(dev, tmp: str) -> dict:
+    """Phase 23: sim/run_one.simulate for each of CHAOS_RUNS with every
+    resolver and read mirror on ``dev``, then the same run on the CPU
+    (the kernels' plain versions); then seed 0 on ``dev`` again."""
+    import torch
+
+    from foundationdb_tpu_torch.sim.run_one import simulate
+
+    def go(i, d, where):
+        seed, kills, bug, faults = CHAOS_RUNS[i]
+        return sim_run(lambda: simulate(seed, kills, bug, faults=faults,
+                                        device=d), d, seed,
+                       os.path.join(tmp, f"chaos{i}-{where}.jsonl"))
+    runs = [(go(i, dev, "card"), go(i, torch.device("cpu"), "cpu"))
+            for i in range(len(CHAOS_RUNS))]
+    return {"runs": runs, "again": go(0, dev, "again")}
+
+
+def check_chaos_phase(r: dict) -> dict:
+    """Phase 23's gates; returns the launches of all its card runs."""
+    ring = sim_ring_bytes()
+    total = {}
+    for (seed, kills, bug, faults), (card, cpu) in zip(CHAOS_RUNS,
+                                                       r["runs"]):
+        got, res = card["launches"], card["result"]
+        grew = card["memory"][1] - card["memory"][0]
+        say(f"chaos seed {seed} kills={kills} buggify={bug} "
+            f"faults={faults}: card {card['seconds']:.3f} s, cpu "
+            f"{cpu['seconds']:.3f} s; epochs reached {card['epoch']}, "
+            f"machines killed {res['MachineAttrition']['machines_killed']},"
+            f" resolves {card['resolves']} (cpu {cpu['resolves']}); "
+            f"launches K1 {got['commit_chain']} K3 {got['hist_check']} K2 "
+            f"{got['ring_append']} B8 {got['prefix_search']} ({card['prefix_calls']} "
+            f"calls, max_abs_err {card['prefix_err']}); results equal to "
+            f"the cpu run {res == cpu['result']}; trace sha256 card "
+            f"{card['sha256'][:16]} cpu {cpu['sha256'][:16]}; device memory "
+            f"{card['memory'][0]} -> {card['memory'][1]} bytes (one ring "
+            f"{ring}) ({CARD})")
+        if res != cpu["result"]:
+            fail(f"chaos seed {seed}: the card's results differ from the "
+                 f"CPU's: {res} against {cpu['result']}")
+        if got["hist_check"] != got["commit_chain"] \
+                or got["commit_chain"] == 0:
+            fail(f"chaos seed {seed} launched {got}")
+        if card["prefix_err"] or got["prefix_search"] != card["prefix_calls"]:
+            fail(f"chaos seed {seed}: prefix_search differs from its plain "
+                 f"version, or a launch went unrecorded")
+        if grew > ring:
+            fail(f"chaos seed {seed}: the card holds {grew} more bytes "
+                 f"after the run than before (one ring is {ring})")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    card, cpu = r["runs"][0]
+    again = r["again"]
+    say(f"chaos seed 0 on the card twice: results equal "
+        f"{again['result'] == card['result']}, traces equal "
+        f"{again['sha256'] == card['sha256']}; card and cpu traces equal "
+        f"{card['sha256'] == cpu['sha256']} ({card['sha256']})")
+    if card["sha256"] != cpu["sha256"]:
+        fail("chaos seed 0: the card's trace differs from the CPU's")
+    if again["result"] != card["result"] or again["sha256"] != card["sha256"]:
+        fail("chaos seed 0 twice on the card gave different runs")
+    return total
+
+
+def dr_resolvers(seen: list):
+    """Wraps DRUnderAttrition's check: before it drains, every live
+    resolver of the source's machines and of the destination cluster is
+    appended to ``seen`` as (conflict set class, device)."""
+    from foundationdb_tpu_torch.workloads.ops import DRUnderAttritionWorkload
+
+    def make(orig):
+        async def checking(self):
+            if self.dr is not None:
+                sim = self.ctx.options["sim"]
+                live = [obj for _, obj in live_roles(sim, "resolver")] \
+                    + list(self._dest_cluster.resolvers)
+                seen.append([(type(x.backend.cs).__name__,
+                              str(x.backend.cs.device)) for x in live])
+            return await orig(self)
+        return checking
+    return wrapped(DRUnderAttritionWorkload, "check", make)
+
+
+def specs_phase(dev, tmp: str) -> list:
+    """Phase 24: sim/spec.run_spec for each of SPECS at seed 0, on
+    ``dev`` and then on the CPU, with DR's live resolvers collected."""
+    import torch
+
+    from foundationdb_tpu_torch.sim.spec import load_spec, run_spec
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "specs")
+    out = []
+    for name in SPECS:
+        spec = load_spec(os.path.join(root, name))
+        pair = []
+        for d, where in ((dev, "card"), (torch.device("cpu"), "cpu")):
+            seen: list = []
+            with dr_resolvers(seen):
+                r = sim_run(lambda d=d: run_spec(spec, seed=0, device=d), d,
+                            0, os.path.join(tmp, f"{name}-{where}.jsonl"))
+            r["dr_resolvers"] = seen
+            pair.append(r)
+        out.append((name, *pair))
+    return out
+
+
+def check_specs_phase(r: list) -> dict:
+    """Phase 24's gates; returns the launches of all its card runs."""
+    total = {}
+    for name, card, cpu in r:
+        got, res = card["launches"], card["result"]
+        say(f"spec {name} seed 0: card {card['seconds']:.3f} s, cpu "
+            f"{cpu['seconds']:.3f} s; epochs reached {card['epoch']}, "
+            f"resolves {card['resolves']}; launches K1 "
+            f"{got['commit_chain']} K3 {got['hist_check']} K2 "
+            f"{got['ring_append']} B8 {got['prefix_search']} "
+            f"({card['prefix_calls']} calls, max_abs_err "
+            f"{card['prefix_err']}); results equal to the cpu run "
+            f"{res == cpu['result']}; results {json.dumps(res)[:600]} "
+            f"({CARD})")
+        if res != cpu["result"]:
+            fail(f"spec {name}: the card's results differ from the CPU's")
+        if got["hist_check"] != got["commit_chain"] \
+                or got["commit_chain"] == 0:
+            fail(f"spec {name} launched {got}")
+        if card["prefix_err"] or got["prefix_search"] != card["prefix_calls"]:
+            fail(f"spec {name}: prefix_search differs from its plain "
+                 "version, or a launch went unrecorded")
+        if name == "cycle_restart.toml":
+            rs = res["restart"]
+            say(f"spec {name}: restart rows {rs['rows']}, protocol "
+                f"{rs['old_protocol']} -> {rs['new_protocol']}, multi-version "
+                f"client switched {rs.get('mv_client_switched')}")
+            if rs["rows"] <= 0 or not rs.get("mv_client_switched"):
+                fail(f"spec {name}: the restart read back {rs}")
+        if name == "backup_dr_chaos.toml":
+            live = card["dr_resolvers"]
+            n = sum(len(x) for x in live)
+            say(f"spec {name}: live resolvers during DR (source and "
+                f"destination) {n}: {live}; on the cpu run "
+                f"{cpu['dr_resolvers']}")
+            if not live or n < 2 or any(
+                    cls != "TorchConflictSet" or not dv.startswith("cuda")
+                    for x in live for cls, dv in x):
+                fail(f"spec {name}: a live resolver during DR is not a cuda "
+                     f"backend on the card: {live}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -3127,22 +3492,33 @@ def main() -> None:
     say(f"phase 22: {time.perf_counter() - t0:.1f} s ({CARD})")
     set_trace_log(TraceLog())
     trace_dir.cleanup()
+
+    # 23. the seeded chaos run on the card; 24. the spec files; both at
+    # the simulator's own shapes, each run with a trace file of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got23 = check_chaos_phase(chaos_phase(dev, tmp))
+        say(f"phase 23: {time.perf_counter() - t0:.1f} s ({CARD})")
+        t0 = time.perf_counter()
+        got24 = check_specs_phase(specs_phase(dev, tmp))
+        say(f"phase 24: {time.perf_counter() - t0:.1f} s ({CARD})")
     report["prefix_search"]["max_abs_err"] = max(
         report["prefix_search"]["max_abs_err"], err20, err21)
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
                 *gots11, got12, *gots13, *gots14, *gots15, got16, got18,
-                got20, got21, got22):
+                got20, got21, got22, got23, got24):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 23. the kernels line, then the result.  The resolver kernels'
+    # 25. the kernels line, then the result.  The resolver kernels'
     # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
     # 6), the one run that takes all three; prefix_search's are those of
     # the durable read-back (phase 12, every engine); each phase printed
-    # its own counts above, and phases 20-22's stand in each row too.
+    # its own counts above, and phases 20-24's stand in each row too.
     counts = dict(got7, prefix_search=got12["prefix_search"])
-    by_phase = {"20": got20, "21": got21, "22": got22}
+    by_phase = {"20": got20, "21": got21, "22": got22, "23": got23,
+                "24": got24}
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),
@@ -3164,7 +3540,8 @@ def main() -> None:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      **{k: r[k] for k in ("latency_bound_ms", "chain_step_ms",
-                                          "level_ms") if k in r}})
+                                          "level_ms", "sim_shapes")
+                        if k in r}})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

@@ -33,7 +33,9 @@ destination server info so they rejoin).  See
 from __future__ import annotations
 
 import asyncio
+import copy
 
+from ..client.transaction import Transaction
 from ..rpc.stubs import StorageClient, TLogClient
 from ..rpc.transport import NetworkAddress, Transport
 from ..runtime.knobs import Knobs
@@ -614,7 +616,14 @@ class DataDistributor:
                        "dest_info": dest_info}],
         }
         flip_layout["teams"][midx] = list(dest_tags)
-        vf = await self._commit_layout(flip_layout)
+        try:
+            vf = await self._commit_layout(flip_layout, epoch0)
+        except MoveAborted as e:
+            await self._abort_move(start_layout, midx, src_team, dest_info,
+                                   epoch0)
+            TraceEvent("DDMoveAborted", severity=30) \
+                .detail("Error", repr(e)[:200]).log()
+            return
 
         # the flip is durable: count the relocation BEFORE the publish so
         # the dd_stats riding the publish already include it
@@ -827,9 +836,14 @@ class DataDistributor:
                              s["token"], s["tag"],
                              KeyRange(bytes(s["begin"]), bytes(s["end"])))
 
-    async def _commit_layout(self, layout: dict) -> Version:
+    async def _commit_layout(self, layout: dict,
+                             epoch: int | None = None) -> Version:
+        """Commit ``layout`` to the layout key, retrying through errors;
+        with ``epoch`` (a move's flip) only in that epoch
+        (``_EpochTransaction``)."""
         from ..rpc.wire import encode
-        tr = self.db.create_transaction()
+        tr = self.db.create_transaction() if epoch is None \
+            else _EpochTransaction(self, epoch)
         # layout maintenance continues under a database lock (the
         # reference's MoveKeys transactions are lock-aware)
         tr.lock_aware = True
@@ -839,3 +853,34 @@ class DataDistributor:
                 return await tr.commit()
             except Exception as e:  # noqa: BLE001 — retry via on_error
                 await tr.on_error(e)
+
+
+class _EpochTransaction(Transaction):
+    """A transaction of the distributor's database that commits only in
+    epoch ``epoch``, for a move's flip.  A recovery out of the move's
+    epoch rolls its "in" journal back to the source team and does not
+    rejoin the destinations, so they miss its rollback and may hold the
+    ended generation's discarded tail: a flip committed in a later epoch
+    would make them the shard's team.  So each attempt runs on a copy of
+    the database's view taken before it (its proxies stay those of the
+    attempt's epoch however the database follows a recovery meanwhile),
+    and an attempt that would start past ``epoch`` raises MoveAborted.
+    An attempt in the move's epoch commits, if at all, at or below the
+    next recovery version, where that recovery reads the flip and
+    rejoins the destinations.  Retries follow the database's recoveries
+    as its own transactions do."""
+
+    def __init__(self, dd: "DataDistributor", epoch: int) -> None:
+        self._dd, self._epoch = dd, epoch
+        super().__init__(self._pinned())
+
+    def _pinned(self):
+        if self._dd.cc.epoch != self._epoch \
+                or self._dd.db.view.epoch > self._epoch:
+            raise MoveAborted("epoch changed before the flip")
+        return copy.copy(self._dd.db.view)
+
+    async def on_error(self, e: BaseException) -> None:
+        await self._dd.db.refresh()
+        await super().on_error(e)
+        self._cluster = self._pinned()

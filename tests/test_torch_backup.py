@@ -27,8 +27,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
-                          assert_same, buggify_off, one_torch_thread,
-                          reference_cases, run_reference_test)
+                          assert_same, buggify_off, hold_to_reference,
+                          one_torch_thread, reference_cases,
+                          run_reference_test)
 
 CASES = {
     "test_backup.py": [
@@ -71,13 +72,7 @@ RECOVERS = {"test_sim_restore_to_version_byte_identical_under_chaos"}
 
 @pytest.mark.parametrize("file,test", reference_cases(CASES))
 def test_scenario_matches_reference(file, test, monkeypatch):
-    ref = run_reference_test(file, test, REF, monkeypatch)
-    if test in RECOVERS:
-        # the port as it is: the reference's own assertions hold
-        run_reference_test(file, test, PORT, monkeypatch)
-    port = run_reference_test(file, test, PORT, monkeypatch,
-                              retire=test not in RECOVERS)
-    assert_same(ref, port)
+    hold_to_reference(file, test, monkeypatch, recovers=test in RECOVERS)
 
 
 def _mutations(seed: int, n: int):

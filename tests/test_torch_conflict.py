@@ -17,6 +17,8 @@ from foundationdb_tpu.runtime import DeterministicRandom
 from foundationdb_tpu_torch.ops import batch as tbatch
 from foundationdb_tpu_torch.ops.conflict_torch import (TorchConflictSet,
                                                         state_to_numpy)
+from foundationdb_tpu_torch.ops.oracle import \
+    OracleConflictSet as PortOracleConflictSet
 
 W = 16
 B, R = 8, 4
@@ -104,10 +106,12 @@ def test_torch_jax_bit_parity(seed, maxlen, ring_inplace):
 
 
 def test_torch_oracle_parity_short_keys():
-    """Against ground truth directly (keys <= W: the encoding is exact)."""
+    """Against ground truth directly (keys <= W: the encoding is exact):
+    the reference's oracle and the port's own copy."""
     rng = DeterministicRandom(77)
     port = TorchConflictSet(4096, W, device=CPU)
     oracle = OracleConflictSet()
+    port_oracle = PortOracleConflictSet()
     version = 100
     for _ in range(25):
         nt = rng.random_int(1, B + 1)
@@ -116,6 +120,7 @@ def test_torch_oracle_parity_short_keys():
         version += rng.random_int(1, 20)
         pv = port.resolve_encoded(port_batch(txns), version)[:nt].tolist()
         assert pv == oracle.resolve_batch(txns, version)
+        assert pv == port_oracle.resolve_batch(txns, version)
 
 
 @pytest.mark.parametrize("seed,window", [(10, 8), (11, 32), (12, 64)])

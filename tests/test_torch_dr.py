@@ -27,8 +27,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
-                          assert_same, buggify_off, one_torch_thread,
-                          reference_cases, run_reference_test)
+                          assert_same, buggify_off, hold_to_reference,
+                          one_torch_thread, reference_cases,
+                          run_reference_test)
 
 CASES = {
     "test_dr.py": [
@@ -60,9 +61,7 @@ CASES = {
 
 @pytest.mark.parametrize("file,test", reference_cases(CASES))
 def test_scenario_matches_reference(file, test, monkeypatch):
-    ref = run_reference_test(file, test, REF, monkeypatch)
-    port = run_reference_test(file, test, PORT, monkeypatch)
-    assert_same(ref, port)
+    hold_to_reference(file, test, monkeypatch)
 
 
 # the reference's two-region layout (tests/test_regions.py): primary dc1

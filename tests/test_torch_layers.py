@@ -13,13 +13,15 @@ commit version, every result of the feed consumer, the secondary index
 consistency checker (its verdicts), the LayerMismatch events traced, and
 the bytes of every simulated disk.
 
-tests/test_layers_chaos.py drives its layer stack with the reference's
-fault and traffic workloads (``workloads/``), which the port does not
-have yet.  ``layers_under_chaos`` below is the same scenario written
-against either package's public surface: the same cluster, layer stack,
-read tier with its inline staleness probe, index churn, machine
-attrition, a swizzle, random clogging and hostile disks under BUGGIFY,
-then the checker's verdict and the canary.
+tests/test_layers_chaos.py drives its layer stack with each package's
+fault and traffic workloads (``workloads/``); tests/test_torch_sim.py
+runs it as written on both.  ``layers_under_chaos`` below is the same
+scenario written by hand against either package's public surface,
+without ``workloads/``: the same cluster, layer stack, read tier with
+its inline staleness probe, index churn, machine attrition, a swizzle,
+random clogging and hostile disks under BUGGIFY, then the checker's
+verdict and the canary.  It stays as a second check of the layers that
+does not lean on the workload modules.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
                           assert_same, buggify_off, captured_trace,
-                          one_torch_thread, patch_port, plain,
-                          reference_cases, run_reference_test)
+                          hold_to_reference, one_torch_thread, patch_port,
+                          plain, reference_cases, run_reference_test)
 
 CASES = {
     "test_layers.py": [
@@ -63,9 +65,7 @@ CASES = {
 
 @pytest.mark.parametrize("file,test", reference_cases(CASES))
 def test_scenario_matches_reference(file, test, monkeypatch):
-    ref = run_reference_test(file, test, REF, monkeypatch)
-    port = run_reference_test(file, test, PORT, monkeypatch)
-    assert_same(ref, port)
+    hold_to_reference(file, test, monkeypatch)
 
 
 # --------------------------------------------------------------------------

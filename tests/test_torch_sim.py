@@ -1,0 +1,153 @@
+"""The port's seeded chaos run (``sim/run_one.py``) and the layer stack
+under chaos against the JAX package's: the cases of
+tests/test_sim_harness.py and tests/test_layers_chaos.py, and the chaos
+run's command line.
+
+Each scenario runs on both packages under its own seed, with its own
+assertions: as written against the reference, and with its imports
+pointed at the port, whose simulated cluster runs the ``cuda`` backend
+and the read mirrors on ``torch.device("cpu")`` (the kernels' plain
+versions).  Every one of these clusters recovers (machine attrition,
+reboots), and after a recovery the port's controller stops the ended
+generation's resolvers, an RPC whose draws from the simulated network
+shift every later event.  So the port runs twice: as it is, making the
+scenario's assertions, and without that retire, held to the reference
+exactly: every workload's metrics (``simulate``'s results), every read,
+read version and commit version, every cluster state waited for, each
+layer's results and the LayerMismatch events traced
+(``torch_parity.hold_to_reference``).
+
+Seed 3 of the chaos run fails on the reference: its ConsistencyCheck
+finds the two replicas of [b"\\x80", b"\\xff\\xff\\xff") disagreeing on
+``\\xff/keyServers/layout`` at virtual time 22.13, after the reboot of
+10.1.0.4 in epoch 4.  The cause is a live move whose flip commit was
+retried into a new epoch (``test_live_move_flip_is_fenced_on_its_epoch``
+below); the port repairs it, so its twin here fails only at the
+reference's run, as the reference's own test does.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
+                          assert_same, buggify_off, captured_trace,
+                          fresh_run, hold_to_reference, one_torch_thread,
+                          patch_port, results_of, run_reference_test)
+
+HARNESS = "test_sim_harness.py"
+
+
+@pytest.mark.parametrize("seed", [0, 3, 17])
+def test_attrition_clogging_buggify_invariants(seed, monkeypatch):
+    ref = hold_to_reference(HARNESS, "test_attrition_clogging_buggify_invariants",
+                            monkeypatch, args={"seed": seed}, recovers=True)
+    assert results_of(ref, "simulate")[0]["Cycle"]["transactions"] == 60
+
+
+@pytest.mark.parametrize("test", ["test_sim_runs_without_buggify",
+                                  "test_storage_machine_reboot_rejoins_with_disk"],
+                         ids=["without_buggify", "reboot_rejoins_with_disk"])
+def test_sim_scenario_matches_reference(test, monkeypatch):
+    hold_to_reference(HARNESS, test, monkeypatch, recovers=True)
+
+
+def test_layer_checker_under_chaos_matches_reference(monkeypatch):
+    """tests/test_layers_chaos.py as written, on both packages: zero
+    divergences under chaos, then the canary caught key-exactly."""
+    ref = hold_to_reference(
+        "test_layers_chaos.py",
+        "test_layer_checker_zero_divergences_under_chaos_then_canary",
+        monkeypatch, recovers=True)
+    assert len(ref["mismatches"]) == 1
+
+
+def test_live_move_flip_is_fenced_on_its_epoch(monkeypatch):
+    """Repro of the reference's seed-3 failure, on the port without the
+    resolver retire (so event for event the reference's run until the
+    repair acts).  Data distribution starts a live move of
+    [b"\\x80", b"\\xff\\xff\\xff") to fresh tags 4 and 5 in epoch 2; its
+    destinations catch up; a ConfigureDatabase recovery to epoch 3
+    rolls the move's "in" journal back to the source team and rejoins
+    only tags 0-3, at recovery version 5308162, while tag 5 has already
+    applied the ended generation's discarded tail up to 5576422.  The
+    flip's transaction, retried through the recovery, committed in
+    epoch 3 and made tags 4 and 5 the shard's team; in epoch 4 tag 5
+    rejoined from 5576422, past epoch 3's layout writes, and served a
+    stale ``\\xff/keyServers/layout``.  The port fences each attempt of
+    the flip on the move's epoch (``DataDistributor._commit_layout``):
+    the move aborts, and every invariant holds."""
+    from foundationdb_tpu_torch.runtime.simloop import run_simulation
+    from foundationdb_tpu_torch.sim.run_one import simulate
+
+    fresh_run(PORT)
+    with monkeypatch.context() as m, captured_trace(PORT) as events:
+        patch_port(m, retire=False)
+        res = run_simulation(simulate(3, kills=2, buggify=True,
+                                      device=torch.device("cpu")), seed=3)
+    assert res["ConsistencyCheck"]["shards_checked"] == 2
+    assert res["Cycle"]["transactions"] == 60
+    aborted = [e for e in events if e.get("Type") == "DDMoveAborted"]
+    assert [e.get("Error") for e in aborted] == [
+        "MoveAborted('epoch changed before the flip')"]
+    assert not [e for e in events if e.get("Type") == "DDMoveComplete"]
+
+
+def _last_line(capsys) -> dict:
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_run_one_main_on_the_cpu_matches_reference(capsys):
+    """``python -m foundationdb_tpu_torch.sim.run_one --device cpu --seed
+    0``: the reference's last line, ``"ok": true`` with every workload's
+    results, equal to the reference's own command's."""
+    from foundationdb_tpu.sim import run_one as ref_run_one
+    from foundationdb_tpu_torch.sim import run_one
+
+    fresh_run(REF)
+    assert ref_run_one.main(["--seed", "0"]) == 0
+    ref = _last_line(capsys)
+    fresh_run(PORT)
+    assert run_one.main(["--device", "cpu", "--seed", "0"]) == 0
+    port = _last_line(capsys)
+    assert port["ok"] is True and port["seed"] == 0
+    assert port == ref
+
+
+def test_run_one_main_needs_the_card_by_default(capsys):
+    """``--device cuda`` (the default) runs on the card; without one it
+    fails like any run (exit 1, ``"ok": false`` with the reason) and never
+    falls back to the CPU."""
+    from foundationdb_tpu_torch.sim import run_one
+
+    rc = run_one.main(["--seed", "0", "--kills", "1"])
+    line = _last_line(capsys)
+    if torch.cuda.is_available():
+        assert rc == 0 and line["ok"] is True
+    else:
+        assert rc == 1 and line["ok"] is False
+        assert "no CUDA device" in line["error"]
+        assert "results" not in line
+
+
+@pytest.mark.cuda
+def test_chaos_seed_on_the_card_matches_reference(monkeypatch):
+    """Chaos seed 17 with every resolver and read mirror on the card:
+    the scenario's assertions as it is, and without the retire, what it
+    showed equals the reference's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t, args = "test_attrition_clogging_buggify_invariants", {"seed": 17}
+    cuda = torch.device("cuda")
+    ref = run_reference_test(HARNESS, t, REF, monkeypatch, args=args)
+    run_reference_test(HARNESS, t, PORT, monkeypatch, device=cuda, args=args)
+    card = run_reference_test(HARNESS, t, PORT, monkeypatch, device=cuda,
+                              args=args, retire=False)
+    assert_same(ref, card)

@@ -22,8 +22,10 @@ import functools
 import importlib
 import inspect
 import itertools
+import json
 import os
 import re
+import sys
 import types
 
 import pytest
@@ -301,14 +303,44 @@ def reference_module(file: str, name: str) -> types.ModuleType:
     return mod
 
 
+# ``\xff\xff/status/json``'s document holds two kinds of field that the
+# comparison leaves out: times taken on the host's clock (``*_ms``,
+# ``*_us_per_batch``, the scrubber's pass duration), which differ from
+# run to run of one package, and two gauges of the resolver's backend
+# that differ by design between the reference's ``numpy`` twin and the
+# port's ``cuda`` backend: the host-visible ring's occupancy (0.0 for a
+# backend whose ring lives in tensors) and the verdict readback's bytes
+# (a bitmask on ``cuda``)
+STATUS_DOC = b'{"cluster": '
+HOST_CLOCK = re.compile(r"(_ms|_us_per_batch|_duration_s)$")
+BACKEND_GAUGES = {"window_occupancy", "device_readback_bytes"}
+
+
+def status_outcome(doc: dict, path: str = ""):
+    """The status document without its host-clock times and the
+    resolver backend's gauges (``window_occupancy`` under ``cluster/lag``
+    is the storage MVCC window's, and stays)."""
+    if isinstance(doc, list):
+        return [status_outcome(v, path) for v in doc]
+    if not isinstance(doc, dict):
+        return doc
+    return {k: status_outcome(v, f"{path}/{k}") for k, v in doc.items()
+            if not HOST_CLOCK.search(k)
+            and not (k in BACKEND_GAUGES and path != "/cluster/lag")}
+
+
 def plain(x, depth: int = 0):
     """``x`` as plain data for comparison across the two packages: their
     classes differ by module, so an object becomes its class name and,
-    for dataclasses and named tuples, its fields."""
-    if x is None or isinstance(x, (bool, int, float, str, bytes)):
+    for dataclasses and named tuples, its fields.  A status document
+    becomes ``status_outcome``'s."""
+    if x is None or isinstance(x, (bool, int, float, str)):
         return x
-    if isinstance(x, (bytearray, memoryview)):
-        return bytes(x)
+    if isinstance(x, (bytes, bytearray, memoryview)):
+        x = bytes(x)
+        if x.startswith(STATUS_DOC):
+            return ("status", status_outcome(json.loads(x)))
+        return x
     if isinstance(x, enum.Enum):
         return (type(x).__name__, x.name)
     if isinstance(x, BaseException):
@@ -356,6 +388,15 @@ RECORDED = {
 }
 
 
+# the functions whose results a workload scenario returns: every
+# workload's metrics (``run_workloads_on``, and ``run_workloads`` around
+# it), the chaos run's (``simulate``) and the spec runner's, with its
+# restart continuity (``run_spec``)
+RESULTS = {"workloads.workload": ("run_workloads", "run_workloads_on"),
+           "sim.run_one": ("simulate",),
+           "sim.spec": ("run_spec",)}
+
+
 def _recording(fn, label: str, log: list):
     if inspect.iscoroutinefunction(fn):
         async def wrapper(*a, **kw):
@@ -381,7 +422,9 @@ def _recording(fn, label: str, log: list):
 def record(mp, name: str, log: list) -> list:
     """Patch package ``name`` (through ``mp``, a pytest MonkeyPatch) so
     that what its scenarios show goes into ``log``; returns the list
-    that collects every ``SimFileSystem`` the scenario makes."""
+    that collects every ``SimFileSystem`` the scenario makes.  A
+    ``RESULTS`` function is replaced wherever a module of the package
+    bound it by name."""
     for path, names in RECORDED.items():
         mod, cls_name = path.rsplit(".", 1)
         cls = getattr(importlib.import_module(f"{name}.{mod}"), cls_name)
@@ -391,6 +434,17 @@ def record(mp, name: str, log: list) -> list:
         for n in names:
             mp.setattr(cls, n, _recording(getattr(cls, n),
                                           f"{cls_name}.{n}", log))
+    # every module first, so that none binds a wrapper by importing it
+    mods = {p: importlib.import_module(f"{name}.{p}") for p in RESULTS}
+    for path, names in RESULTS.items():
+        mod = mods[path]
+        for n in names:
+            fn = getattr(mod, n)
+            wrapper = _recording(fn, n, log)
+            for m in list(sys.modules.values()):
+                if getattr(m, "__name__", "").startswith(name + ".") \
+                        and vars(m).get(n) is fn:
+                    mp.setattr(m, n, wrapper)
     disks = []
     fs_cls = importlib.import_module(f"{name}.runtime.files").SimFileSystem
     init = fs_cls.__init__
@@ -445,24 +499,43 @@ def captured_trace(name: str):
         tr.set_trace_log(prev)
 
 
+def fresh_run(name: str) -> None:
+    """Package ``name``'s process-wide state as a fresh process has it:
+    BUGGIFY off, no client API version selected, and the span rollup,
+    the span ids (which every role's status metrics report) and the
+    transactions' class-wide probe ids (trace ids) at zero."""
+    importlib.import_module(f"{name}.runtime.buggify").enable_buggify(False)
+    importlib.import_module(
+        f"{name}.client.multiversion")._reset_api_version_for_tests()
+    importlib.import_module(f"{name}.runtime.span").reset_totals()
+    importlib.import_module(
+        f"{name}.client.transaction").Transaction._probe_counter = 0
+
+
 def run_reference_test(file: str, test: str, name: str, mp,
-                       device=None, retire: bool = True) -> dict:
-    """Run the reference's ``file::test`` against package ``name`` with
-    its own assertions; return what it showed: the transcript, each
-    simulated disk's bytes, and the LayerMismatch events it traced.
-    The port runs as ``patch_port(device, retire)`` sets it."""
-    mod = reference_module(file, name)
-    fn = getattr(mod, test)
+                       device=None, retire: bool = True,
+                       args=None) -> dict:
+    """Run the reference's ``file::test`` (with the parameters
+    ``args``: a dict, or a function of the scenario's module that
+    returns one) against package ``name`` with its own assertions, from
+    fresh process state (``fresh_run``); return what it
+    showed: the transcript, each simulated disk's bytes, and the
+    LayerMismatch events it traced.  The port runs as
+    ``patch_port(device, retire)`` sets it."""
+    fresh_run(name)
     log: list = []
     with mp.context() as m:
         disks = record(m, name, log)
         if name == PORT:
             patch_port(m, device, retire)
+        # the scenario's module binds the recorded functions by name
+        mod = reference_module(file, name)
+        fn = getattr(mod, test)
+        kw = (args(mod) if callable(args) else args) or {}
         with captured_trace(name) as events:
             if "captured_trace" in inspect.signature(fn).parameters:
-                fn(captured_trace=events)
-            else:
-                fn()
+                kw["captured_trace"] = events
+            fn(**kw)
     return {"transcript": log,
             "disks": [{p: bytes(b) for p, b in fs.disks.items()}
                       for fs in disks],
@@ -487,3 +560,50 @@ def assert_same(ref: dict, port: dict) -> None:
         assert sorted(a) == sorted(b), f"disk {i}: {sorted(set(a) ^ set(b))}"
         assert [p for p in a if a[p] != b[p]] == [], f"disk {i} bytes"
     assert ref == port
+
+
+def hold_to_reference(file: str, test: str, mp, args=None,
+                      recovers: bool = False, port_args=None) -> dict:
+    """The reference's ``file::test`` run on both packages, each with its
+    own assertions, and what they showed held equal (``assert_same``);
+    returns the reference's.  ``port_args`` are the port's parameters
+    where they differ from the reference's ``args``.  A scenario that
+    ``recovers`` runs the port twice: as it is, with the assertions, and
+    without the resolver retire (see ``patch_port``) for the comparison."""
+    ref = run_reference_test(file, test, REF, mp, args=args)
+    port_args = args if port_args is None else port_args
+    if recovers:
+        run_reference_test(file, test, PORT, mp, args=port_args)
+    port = run_reference_test(file, test, PORT, mp, args=port_args,
+                              retire=not recovers)
+    assert_same(ref, port)
+    return ref
+
+
+def results_of(shown: dict, fn: str) -> list:
+    """What each call of the recorded function ``fn`` returned, in
+    order, from a ``run_reference_test`` result."""
+    return [e[1] for e in shown["transcript"] if e[0] == fn and len(e) == 2]
+
+
+def run_workload_specs(name: str, mp, specs: list, seed: int,
+                       clients: int) -> dict:
+    """Package ``name``'s ``run_workloads(specs)`` on the multi() cluster
+    of tests/test_workloads.py (2 commit and 2 GRV proxies, 3 resolvers,
+    2 logs, 4 storage servers), the port's on the CPU, from
+    ``fresh_run``, with what it showed recorded as ``run_reference_test`` records it."""
+    W = importlib.import_module(f"{name}.workloads.workload")
+    C = importlib.import_module(f"{name}.core.cluster").ClusterConfig
+    fresh_run(name)
+    log: list = []
+    with mp.context() as m:
+        disks = record(m, name, log)
+        if name == PORT:
+            patch_port(m)
+        W.run_workloads(specs, seed=seed, client_count=clients,
+                        config=C(commit_proxies=2, grv_proxies=2,
+                                 resolvers=3, logs=2, storage_servers=4))
+    return {"transcript": log,
+            "disks": [{p: bytes(b) for p, b in fs.disks.items()}
+                      for fs in disks],
+            "mismatches": []}
