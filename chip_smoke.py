@@ -177,8 +177,39 @@ commit and storage paths on the card and exits non-zero on any failure:
    resolver during DR, the destination cluster's too, a cuda backend on
    the card), region_chaos.toml and engine_migration_chaos.toml; each
    spec's checks pass and its results equal the CPU run's;
-25. one JSON line with each kernel's launches (the resolver kernels' in
-   phase 6's run, prefix_search's in phase 12's, and phases 20-24's in
+25. the operator's deployment (tests/test_monitor.py's layout): the
+   port's fdbmonitor over three coordinator servers and one worker-only
+   server, each ``device = cuda``, replication 2, in two lifetimes of
+   one kill each; the port's fdbcli (``--exec``) writes, reads and shows
+   ``resolver_device`` dispatches in ``status json``; the elected
+   leader's server SIGKILLed (the monitor paused) and the seconds until
+   a commit succeeds again, then restarted; the reference's
+   bindings/c/test_c_smoke.c built against the port's header and
+   libfdbtpu_c.so prints ``C ABI SMOKE OK``; tests/test_bindings.py's
+   operation sequence through the port's Python binding over the C ABI
+   equal to the native client's; every acknowledged write read back; in
+   the second lifetime the worker-only server SIGKILLed, restarted by
+   the monitor, and the writes read back; the servers hold the card and
+   no CLI or C ABI client does (``/proc/<pid>/fd``; nvidia-smi's pids
+   are not this machine's there); SIGTERM to each monitor stops every
+   server with exit code 0;
+26. the seed farm (tools/seed_farm.py) over run_one's chaos mix on the
+   card at --jobs 1 (seeds 0-3), 4 and 8 (seeds 0-31), and on the CPU at
+   --jobs 8: every seed's result on the card equal to the CPU's, equal
+   failure buckets, K1 = K3 > 0 in each seed's process, seeds per minute
+   and each child's peak allocated bytes; the port's trace_tool and
+   metrics_tool over phase 23's seed-0 traces from the card and the CPU
+   give equal summaries;
+27. the perf smoke's resolve stage (tools/perf_smoke.py) with the cuda
+   backend on the card: verdicts equal to the numpy twin's, TOO_OLD
+   verdicts, K1 = K3 > 0; then the stage again with every K3 and K1 call
+   held to its plain version on its own tensors (its window of 64 slots
+   and ring of 2048 are shapes phase 3 does not cover); the pipelined
+   and unpipelined txns/s beside the reference's 2x floor;
+28. a compact summary (each kernel's times, launches, bounds and library
+   time, B6's and B9's, each new phase's one-line result), then one JSON
+   line with each kernel's launches (the resolver kernels' in phase 6's
+   run, prefix_search's in phase 12's, and phases 20-24's and 27's in
    ``launches_by_phase``), max error, times and bound (K1 also its
    latency bound: B chain steps at the step time measured in phase 3;
    B8 its latency bound: one probe's search chain at N = 2**24 measured
@@ -230,6 +261,9 @@ CHAOS_RUNS = [(0, 2, True, None), (17, 2, True, None),
 SPECS = ["cycle_restart.toml", "backup_dr_chaos.toml", "region_chaos.toml",
          "engine_migration_chaos.toml"]
 CARD = ""          # nvidia-smi's name and power limit, set by main
+# the compact per-kernel and per-phase summary printed before the kernels
+# line, so that it stays in the tail of a long output
+SUMMARY: list[str] = []
 
 
 def fail(msg: str) -> None:
@@ -1200,6 +1234,14 @@ def multi_resolver_phase(dev, batches: int = SCALING_BATCHES,
             + f", call_ms={span:.6f} (CUDA events), "
             f"bound_ms={nbytes / HBM_BYTES_PER_S * 1e3:.8f} "
             f"(bytes; {nbytes} bytes)")
+        SUMMARY.append(
+            f"B9 S={S} (B={Bb}, R={Rb}, L={Lb}): ms "
+            + (f"{ms:.6f} ({len(kern) / reps:.1f} torch kernels a call)"
+               if kern else "not measured")
+            + f", call_ms {span:.6f}, launches one mask + one max a step "
+            f"({batches} steps a run), bound_ms "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.8f} (bytes), plain_ms = ms "
+            f"(torch ops), library_ms null")
     for S in (1, 8):
         pr = mr.profile_scaling(S, 64, history_slots=history_slots,
                                 device=dev)
@@ -3153,6 +3195,863 @@ def check_specs_phase(r: list) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 25: the operator's deployment (fdbmonitor, fdbcli, the C ABI)
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class GpuHolders:
+    """Samples, every ``every`` seconds on a thread of its own, which
+    processes hold the NVIDIA device files open (``/proc/<pid>/fd``
+    links to ``/dev/nvidia*``, the device files a CUDA context holds
+    open), and how many compute apps ``nvidia-smi
+    --query-compute-apps=pid`` lists (its pids are not this machine's
+    when the card's processes run in a pid namespace)."""
+
+    def __init__(self, every: float = 0.05) -> None:
+        import threading
+        self.pids: set[int] = set()
+        self.samples = 0
+        self.smi_apps_max = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(every,),
+                                        daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def holds(pid: str) -> bool:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            return False
+        for fd in fds:
+            try:
+                if os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                        "/dev/nvidia"):
+                    return True
+            except OSError:
+                pass
+        return False
+
+    def _run(self, every: float) -> None:
+        n = 0
+        while not self._stop.is_set():
+            self.pids |= {int(p) for p in os.listdir("/proc")
+                          if p.isdigit() and self.holds(p)}
+            self.samples += 1
+            if n % 20 == 0:
+                r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                    "--format=csv,noheader"],
+                                   capture_output=True, text=True, timeout=30)
+                self.smi_apps_max = max(self.smi_apps_max,
+                                        len(r.stdout.split()))
+            n += 1
+            self._stop.wait(every)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+# tests/test_bindings.py's operation sequence (its ops, check, check2,
+# extended, check3 and check4 transactions), as data: each transaction a
+# list of (op, args...) whose observations are compared
+BINDING_SEQUENCE = [
+    [("set", b"bt1", b"v1"), ("set", b"bt2", b"v2"), ("get", b"bt1")],
+    [("get", b"bt1"), ("get", b"bt2"), ("get", b"btmissing"),
+     ("clear", b"bt1")],
+    [("get", b"bt1"), ("get", b"bt2")],
+    [("option", "lock_aware")]
+    + [("set", b"rng%02d" % i, b"x%d" % i) for i in range(5)]
+    + [("add", b"ctr", (7).to_bytes(8, "little"))],
+    [("range", b"rng", b"rng\xff", 0, False),
+     ("range", b"rng", b"rng\xff", 2, True), ("get", b"ctr"),
+     ("add", b"ctr", (5).to_bytes(8, "little"))],
+    [("get", b"ctr"), ("grv",), ("option", "no_such_option")],
+]
+BINDING_EXPECTED = [
+    ["v1"], ["v1", "v2", None], [None, "v2"], [0],
+    [[[f"rng{i:02d}", f"x{i}"] for i in range(5)],
+     [["rng04", "x4"], ["rng03", "x3"]], (7).to_bytes(8, "little").hex()],
+    [(12).to_bytes(8, "little").hex(), True, 2007],
+]
+
+
+def _shown(x, prefix: bytes):
+    """An observation as JSON data: a value's bytes as text where they
+    are printable, else hex; a key without the run's prefix."""
+    if isinstance(x, (bytes, bytearray)):
+        x = bytes(x)
+        if x.startswith(prefix):
+            x = x[len(prefix):]
+        return x.decode() if x.isascii() and x.isalnum() else x.hex()
+    if isinstance(x, (list, tuple)):
+        return [_shown(v, prefix) for v in x]
+    return x
+
+
+def binding_observations_c(db, prefix: bytes) -> list:
+    """BINDING_SEQUENCE through the Python binding over the C ABI
+    (``fdbtpu.open``'s database), its keys under ``prefix``."""
+    import fdbtpu
+    out = []
+    for ops in BINDING_SEQUENCE:
+        def txn(tr, ops=ops):
+            seen = []
+            for op, *a in ops:
+                k = prefix + a[0] if a and isinstance(a[0], bytes) else None
+                if op == "set":
+                    tr.set(k, a[1])
+                elif op == "clear":
+                    tr.clear(k)
+                elif op == "get":
+                    seen.append(tr.get(k))
+                elif op == "add":
+                    tr.add(k, a[1])
+                elif op == "range":
+                    seen.append(tr.get_range(k, prefix + a[1], limit=a[2],
+                                             reverse=a[3]))
+                elif op == "grv":
+                    seen.append(tr.get_read_version() > 0)
+                else:
+                    try:
+                        tr.set_option(a[0])
+                        seen.append(0)
+                    except fdbtpu.FdbtpuError as e:
+                        seen.append(e.code)
+            return seen
+        out.append(_shown(db.run(txn), prefix))
+    return out
+
+
+async def binding_observations_native(cli, prefix: bytes) -> list:
+    """BINDING_SEQUENCE through the port's native client (the CLI's retry
+    loop over TCP), its keys under ``prefix``; an option is what the C
+    ABI's host does with it."""
+    from foundationdb_tpu_torch.core.data import MutationType
+    out = []
+    for ops in BINDING_SEQUENCE:
+        async def txn(tr, ops=ops):
+            seen = []
+            for op, *a in ops:
+                k = prefix + a[0] if a and isinstance(a[0], bytes) else None
+                if op == "set":
+                    tr.set(k, a[1])
+                elif op == "clear":
+                    tr.clear(k)
+                elif op == "get":
+                    seen.append(await tr.get(k))
+                elif op == "add":
+                    tr.atomic_op(MutationType.ADD, k, a[1])
+                elif op == "range":
+                    seen.append(await tr.get_range(
+                        k, prefix + a[1], limit=a[2], reverse=a[3]))
+                elif op == "grv":
+                    seen.append(await tr.get_read_version() > 0)
+                elif a[0] == "lock_aware":
+                    tr.lock_aware = True
+                    seen.append(0)
+                else:
+                    seen.append(2007)       # invalid_option
+            return seen
+        out.append(_shown(await cli.run_txn(txn), prefix))
+    return out
+
+
+class Deployment:
+    """One ``python3 -m foundationdb_tpu_torch.monitor`` over a fresh conf
+    in ``tmp``: tests/test_monitor.py's layout, three coordinator servers
+    and one worker-only server, each ``device = <dev_name>``,
+    min_workers=3, replication=2; and the CLI (``python3 -m
+    foundationdb_tpu_torch.cli --exec``) against it.  Every client
+    process's pid goes to ``client_pids``."""
+
+    def __init__(self, dev_name: str, tmp: str, client_pids: list) -> None:
+        from foundationdb_tpu_torch.core.cluster_file import ClusterFile
+        from foundationdb_tpu_torch.rpc.transport import NetworkAddress
+        os.makedirs(tmp)
+        self.tmp, self.client_pids = tmp, client_pids
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.repo)
+        self.ports = _free_ports(4)
+        self.cf_path = os.path.join(tmp, "fdb.cluster")
+        ClusterFile("deploy", "t1", [NetworkAddress("127.0.0.1", p)
+                                     for p in self.ports[:3]]).save(
+                                         self.cf_path)
+        conf = os.path.join(tmp, "fdbmonitor.conf")
+        with open(conf, "w") as f:
+            f.write(f"[general]\ncluster-file = {self.cf_path}\n"
+                    f"restart-delay = 0.5\ndevice = {dev_name}\n"
+                    f"logdir = {tmp}\n" + "".join(
+                        f"[fdbserver.{p}]\nlisten = 127.0.0.1:{p}\n"
+                        "spec = min_workers=3,replication=2\n"
+                        for p in self.ports))
+        self.mon_err = os.path.join(tmp, "monitor.err")
+        self.t0 = time.perf_counter()
+        with open(self.mon_err, "wb") as ef:
+            self.mon = subprocess.Popen(
+                [sys.executable, "-m", "foundationdb_tpu_torch.monitor", "-C",
+                 conf], cwd=self.repo, env=self.env,
+                stdout=subprocess.DEVNULL, stderr=ef)
+
+    def _read(self, name: str) -> str:
+        with open(os.path.join(self.tmp, name), errors="replace") as f:
+            return f.read()
+
+    def started(self) -> dict:
+        """Each server's pids in the order the monitor started them."""
+        pids: dict = {}
+        for ln in self._read("monitor.err").splitlines():
+            if "started fdbserver." in ln:
+                sid = ln.split("fdbserver.")[1].split()[0]
+                pids.setdefault(int(sid), []).append(
+                    int(ln.split("pid=")[1].split()[0]))
+        return pids
+
+    def cli(self, script: str, timeout: float = 120) -> str:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "foundationdb_tpu_torch.cli", "-C",
+             self.cf_path, "--exec", script], cwd=self.repo, env=self.env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.client_pids.append(p.pid)
+        try:
+            so, se = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        return so if p.returncode == 0 else f"rc={p.returncode} {se[-600:]}"
+
+    def read_back(self, keys: list) -> dict:
+        """Each key's ``get`` through one CLI run (split on newlines only:
+        a value's bytes may hold a form feed)."""
+        got = self.cli("; ".join(f"get {k.decode()}" for k in keys))
+        return dict(zip(keys, got.rstrip("\n").split("\n")))
+
+    def until(self, script: str, want: str, budget: float) -> float:
+        """Seconds until the CLI's ``script`` prints ``want``."""
+        t = time.perf_counter()
+        while True:
+            got = self.cli(script)
+            if want in got:
+                return time.perf_counter() - t
+            if self.mon.poll() is not None:
+                fail(f"the monitor exited: {self._read('monitor.err')[-2000:]}")
+            if time.perf_counter() - t > budget:
+                fail(f"`{script}' never gave `{want}' within {budget} s: "
+                     f"{got[-1500:]}")
+            time.sleep(0.5)
+
+    def up_after(self, sid: int, n: int, budget: float) -> float:
+        """Seconds until server ``sid`` has started ``n`` times and its
+        latest process is up (its SIGTERM handler set)."""
+        t = time.perf_counter()
+        while len(self.started().get(sid, [])) < n or self._read(
+                f"fdbserver.{sid}.log").count('"ServerStarted"') < n:
+            if time.perf_counter() - t > budget:
+                fail(f"server {sid} did not start a {n}th time")
+            time.sleep(0.2)
+        return time.perf_counter() - t
+
+    def stop(self) -> dict:
+        """SIGTERM to the monitor (resumed first, if paused); what it and
+        its servers said about stopping."""
+        import signal
+        alive = self.mon.poll() is None
+        self.mon.send_signal(signal.SIGCONT)
+        self.mon.send_signal(signal.SIGTERM)
+        try:
+            self.mon.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.mon.kill()
+            self.mon.wait()
+        log = self._read("monitor.err")
+        return {"alive": alive, "rc": self.mon.returncode, "log": log,
+                "servers": self.started(),
+                "stopped": [ln for ln in log.splitlines()
+                            if "stopped rc=" in ln],
+                "tracebacks": [f for f in os.listdir(self.tmp)
+                               if f.startswith("fdbserver.")
+                               and "Traceback" in self._read(f)]}
+
+
+def deployment_phase(dev_name: str, root: str | None = None) -> dict:
+    """Phase 25, the operator's deployment, in two fdbmonitor lifetimes
+    (``Deployment``), each with at most one server killed: replication 2
+    outlives one lost process, and a server the monitor restarts comes
+    back as an empty coordinator, TLog and storage host (ROADMAP C).
+
+    The first: the first commit through the CLI (timed from the
+    monitor's spawn), 16 writes, a range read and the status document;
+    SIGKILL of the elected leader's server with the monitor paused, the
+    seconds until a commit succeeds again (the port's open_cli in this
+    process, as fdbcli runs it), then the monitor resumed, which restarts
+    the server; the reference's bindings/c/test_c_smoke.c built against
+    the port's header and library; tests/test_bindings.py's operation
+    sequence through the port's Python binding over the C ABI and through
+    the native client; every acknowledged write read back through the
+    CLI; SIGTERM.  The second: a commit, then SIGKILL of the worker-only
+    server, which the monitor restarts, and the writes read back through
+    the CLI (tests/test_monitor.py's contract after the restart); SIGTERM.
+    With ``cuda`` the processes holding the card are sampled throughout."""
+    import signal
+    import site
+    import sysconfig
+
+    from foundationdb_tpu_torch.cli import open_cli
+    from foundationdb_tpu_torch.native.build import build
+    from foundationdb_tpu_torch.rpc.stubs import CoordinatorClient
+    from foundationdb_tpu_torch.rpc.tcp_transport import TcpTransport
+    from foundationdb_tpu_torch.rpc.transport import (NetworkAddress,
+                                                      WLTOKEN_COORDINATOR)
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.trace import (TraceLog,
+                                                      get_trace_log,
+                                                      set_trace_log)
+
+    out: dict = {"client_pids": [], "acked": {}}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        # this process's client trace events (the failover's and the
+        # native sequence's) go to a file of the phase's own
+        prev_log = get_trace_log()
+        set_trace_log(TraceLog(path=os.path.join(tmp, "client.jsonl")))
+        apps = GpuHolders() if dev_name == "cuda" else None
+        try:
+            d = Deployment(dev_name, os.path.join(tmp, "main"),
+                           out["client_pids"])
+            try:
+                d.until("set first 1", "Committed", 300)
+                out["first_commit_s"] = time.perf_counter() - d.t0
+                out["acked"][b"first"] = b"1"
+                writes = {b"deploy/%02d" % i: b"v%d" % i for i in range(16)}
+                got = d.cli("; ".join(f"set {k.decode()} {v.decode()}"
+                                      for k, v in writes.items()))
+                if got.split() != ["Committed"] * 16:
+                    fail(f"the CLI's writes: {got}")
+                out["acked"].update(writes)
+                out["range"] = d.cli("getrange deploy/ deploy0 100") \
+                    .splitlines()
+                out["status"] = json.loads(d.cli("status json"))["cluster"]
+
+                async def failover():
+                    cli_ = await open_cli(d.cf_path, Knobs(), timeout=60)
+                    t = TcpTransport(NetworkAddress("127.0.0.1", 0))
+                    leader = None
+                    try:
+                        for p in d.ports[:3]:
+                            co = CoordinatorClient(t, NetworkAddress(
+                                "127.0.0.1", p), WLTOKEN_COORDINATOR)
+                            try:
+                                led = await asyncio.wait_for(
+                                    co.read_leader(), 5)
+                            except (Exception, asyncio.TimeoutError):
+                                continue
+                            if led is not None:
+                                leader = led[1][1]
+                                break
+                    finally:
+                        await t.close()
+                    if leader not in d.ports:
+                        fail(f"no elected leader among the servers: {leader}")
+                    out["leader"] = leader
+                    # the monitor paused while the survivors recover: a
+                    # server restarted at once is an empty coordinator,
+                    # which can strand the new generation (ROADMAP C)
+                    os.kill(d.mon.pid, signal.SIGSTOP)
+                    try:
+                        os.kill(d.started()[leader][-1], signal.SIGKILL)
+                        tk = time.perf_counter()
+                        while True:
+                            try:
+                                got = await asyncio.wait_for(
+                                    cli_.execute("set after failover"), 30)
+                            except asyncio.TimeoutError:
+                                got = "timeout"
+                            if got == "Committed":
+                                out["failover_s"] = time.perf_counter() - tk
+                                break
+                            if time.perf_counter() - tk > 240:
+                                fail(f"no commit within 240 s of the "
+                                     f"leader's kill: {got}")
+                            await asyncio.sleep(0.25)
+                    finally:
+                        os.kill(d.mon.pid, signal.SIGCONT)
+                    out["acked"][b"after"] = b"failover"
+                    out["native"] = await binding_observations_native(
+                        cli_, b"n/")
+                    await cli_.view.transport.close()
+                asyncio.run(asyncio.wait_for(failover(), 600))
+                # the monitor resumed: it restarts the leader's server
+                out["leader_restart_s"] = d.up_after(out["leader"], 2, 120)
+
+                # the C ABI: the reference's C program against the port's
+                # header and library; its interpreter finds torch and the
+                # repo through PYTHONPATH
+                lib = build("fdbtpu_c")
+                exe = os.path.join(tmp, "c_smoke")
+                inc = sysconfig.get_paths()["include"]
+                libdir = sysconfig.get_config_var("LIBDIR")
+                cc = subprocess.run(
+                    ["g++", "-o", exe,
+                     os.path.join(d.repo, "bindings", "c", "test_c_smoke.c"),
+                     "-I", os.path.join(d.repo, "foundationdb_tpu_torch",
+                                        "bindings", "c"), "-I", inc, lib,
+                     f"-L{libdir}",
+                     "-lpython" + sysconfig.get_config_var("LDVERSION"),
+                     f"-Wl,-rpath,{os.path.dirname(lib)}",
+                     f"-Wl,-rpath,{libdir}"], capture_output=True, text=True)
+                if cc.returncode != 0:
+                    fail(f"compiling test_c_smoke.c: {cc.stderr}")
+                cenv = dict(d.env, PYTHONPATH=os.pathsep.join(
+                    [d.repo, *site.getsitepackages()]))
+                tc = time.perf_counter()
+                p = subprocess.Popen([exe, d.cf_path], env=cenv,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                out["client_pids"].append(p.pid)
+                so, se = p.communicate(timeout=300)
+                out["c_smoke_s"] = time.perf_counter() - tc
+                out["c_smoke"] = (p.returncode, so.strip(), se[-1500:])
+                out["acked"][b"c-key"] = None     # the C program clears it
+                # the Python binding over the C ABI, a process of its own
+                pybind = os.path.join(d.repo, "foundationdb_tpu_torch",
+                                      "bindings", "python")
+                script = (
+                    "import json, sys\n"
+                    f"sys.path[:0] = [{d.repo!r}, {pybind!r}]\n"
+                    "import chip_smoke as cs, fdbtpu\n"
+                    f"db = fdbtpu.open({d.cf_path!r})\n"
+                    "print(json.dumps(cs.binding_observations_c(db, b'c/')))\n")
+                tb = time.perf_counter()
+                p = subprocess.Popen([sys.executable, "-c", script],
+                                     cwd=d.repo, env=cenv,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                out["client_pids"].append(p.pid)
+                so, se = p.communicate(timeout=300)
+                out["binding_s"] = time.perf_counter() - tb
+                if p.returncode != 0:
+                    fail(f"the Python binding over the C ABI: {se[-2000:]}")
+                out["binding"] = json.loads(so.strip().splitlines()[-1])
+                for pre in (b"c/", b"n/"):
+                    out["acked"].update({
+                        pre + b"bt1": None, pre + b"bt2": b"v2",
+                        pre + b"ctr": (12).to_bytes(8, "little")})
+                    out["acked"].update({pre + b"rng%02d" % i: b"x%d" % i
+                                         for i in range(5)})
+                out["read_back"] = d.read_back(sorted(out["acked"]))
+            finally:
+                out["main"] = d.stop()
+
+            # the second lifetime: the worker-only server killed, the
+            # monitor restarts it, and the cluster serves reads again
+            d = Deployment(dev_name, os.path.join(tmp, "supervision"),
+                           out["client_pids"])
+            try:
+                d.until("set sup/first 1", "Committed", 300)
+                sup = {b"sup/%02d" % i: b"s%d" % i for i in range(8)}
+                got = d.cli("; ".join(f"set {k.decode()} {v.decode()}"
+                                      for k, v in sup.items()))
+                if got.split() != ["Committed"] * 8:
+                    fail(f"the CLI's writes: {got}")
+                sup[b"sup/first"] = b"1"
+                out["sup_acked"] = sup
+                victim = d.ports[3]
+                os.kill(d.started()[victim][-1], signal.SIGKILL)
+                t1 = time.perf_counter()
+                while len(d.started().get(victim, [])) < 2:
+                    if time.perf_counter() - t1 > 60:
+                        fail("the monitor never restarted the killed server")
+                    time.sleep(0.2)
+                out["respawn_s"] = time.perf_counter() - t1
+                d.until("get sup/05", "`sup/05' is `s5'", 180)
+                out["serve_after_restart_s"] = time.perf_counter() - t1
+                # the restarted server up (its SIGTERM handler set)
+                d.up_after(victim, 2, 240)
+                out["sup_read_back"] = d.read_back(sorted(sup))
+            finally:
+                out["supervision"] = d.stop()
+        finally:
+            get_trace_log().close()
+            set_trace_log(prev_log)
+            if apps is not None:
+                apps.stop()
+                out["gpu_pids"], out["gpu_samples"] = apps.pids, apps.samples
+                out["smi_apps_max"] = apps.smi_apps_max
+    return out
+
+
+def check_deployment_phase(r: dict, card: str) -> str:
+    """Phase 25's gates; returns its one-line result."""
+    dv = r["status"]["resolver_device"]
+    rc, so, se = r["c_smoke"]
+
+    def shown(k, v):
+        return (f"`{k.decode()}': not found" if v is None else
+                f"`{k.decode()}' is `{v.decode()}'")
+    bad_back = {k: v for acked, back in ((r["acked"], r["read_back"]),
+                                         (r["sup_acked"], r["sup_read_back"]))
+                for k, v in back.items() if v != shown(k, acked[k])}
+    lives = (r["main"], r["supervision"])
+    servers = {p for life in lives for pids in life["servers"].values()
+               for p in pids}
+    say(f"deployment: spawn to the first commit through the CLI "
+        f"{r['first_commit_s']:.3f} s; leader {r['leader']} killed with the "
+        f"monitor paused, a commit succeeded again after "
+        f"{r['failover_s']:.3f} s, the monitor resumed and restarted it in "
+        f"{r['leader_restart_s']:.3f} s; worker-only server killed, "
+        f"restarted by the monitor in {r['respawn_s']:.3f} s, serving reads "
+        f"through the CLI again {r['serve_after_restart_s']:.3f} s after the "
+        f"kill ({card})")
+    say(f"deployment: status epoch {r['status']['epoch']}, available "
+        f"{r['status']['database_available']}, resolver_device "
+        f"{json.dumps(dv)}; C smoke rc {rc} `{so}' in {r['c_smoke_s']:.3f} s; "
+        f"Python over the C ABI {r['binding_s']:.3f} s, observations equal "
+        f"to the native client's {r['binding'] == r['native']}; "
+        f"{len(r['read_back']) + len(r['sup_read_back'])} acknowledged keys "
+        f"read back, {len(bad_back)} wrong; monitors rc "
+        f"{[life['rc'] for life in lives]}, "
+        f"{[life['stopped'] for life in lives]}; server logs with a "
+        f"traceback {[life['tracebacks'] for life in lives]}")
+    if "gpu_pids" in r:
+        listed = sorted(r["gpu_pids"] & servers)
+        clients = sorted(r["gpu_pids"] & set(r["client_pids"]))
+        say(f"deployment: processes holding the card's device files over "
+            f"{r['gpu_samples']} samples: servers {listed} of "
+            f"{sorted(servers)}; client processes (the CLI's, the C "
+            f"program's, the binding's) {clients} of {r['client_pids']}; "
+            f"others {sorted(r['gpu_pids'] - servers)}; nvidia-smi listed "
+            f"at most {r['smi_apps_max']} compute apps")
+        if not listed or clients:
+            fail("no server held the card, or a CLI or C ABI client did")
+    if rc != 0 or "C ABI SMOKE OK" not in so:
+        fail(f"the C smoke program against the port's library: {se}")
+    if r["binding"] != r["native"] or r["binding"] != BINDING_EXPECTED:
+        fail(f"the Python binding over the C ABI {r['binding']} against the "
+             f"native client {r['native']} (expected {BINDING_EXPECTED})")
+    if bad_back or len(r["range"]) != 16:
+        fail(f"an acknowledged write did not read back: {bad_back}, range "
+             f"{r['range']}")
+    if dv["pipelined_resolvers"] < 1 or dv["dispatches"] <= 0 \
+            or not r["status"]["database_available"]:
+        fail("the CLI's status shows no pipelined resolver that dispatched")
+    for life in lives:
+        if life["rc"] != 0 or len(life["stopped"]) != 4 or any(
+                not ln.endswith("rc=0") for ln in life["stopped"]) \
+                or life["tracebacks"] or not life["alive"]:
+            fail("the monitor or a server did not stop cleanly on SIGTERM: "
+                 f"{life['log'][-3000:]}")
+    return (f"phase 25: first commit {r['first_commit_s']:.3f} s, failover "
+            f"{r['failover_s']:.3f} s, restarts {r['leader_restart_s']:.3f} "
+            f"and {r['respawn_s']:.3f} s, C smoke {r['c_smoke_s']:.3f} s, "
+            f"binding {r['binding_s']:.3f} s, resolver dispatches "
+            f"{dv['dispatches']}, every server stopped rc=0 ({card})")
+
+
+# --------------------------------------------------------------------------
+# phase 26: the seed farm on the card
+
+
+FARM_SEEDS = 32             # seeds 0..31 of run_one's default chaos mix
+FARM_SEEDS_ONE_JOB = 4      # --jobs 1 runs seeds 0..3 (the smoke's limit)
+HOST_FIELDS = ("elapsed", "device_peak_bytes", "kernel_launches", "stderr")
+
+
+def farm_phase(tmp: str, dev_name: str = "cuda", seeds: int = FARM_SEEDS,
+               seeds_one_job: int = FARM_SEEDS_ONE_JOB) -> dict:
+    """Phase 26: ``python3 -m foundationdb_tpu_torch.tools.seed_farm`` on
+    ``dev_name`` at --jobs 1 (the first ``seeds_one_job`` seeds), 4 and 8,
+    then on the CPU at --jobs 8 (the last run, the twin), each seed's
+    result kept (``--out``)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for dev_, jobs, n in ((dev_name, 1, seeds_one_job), (dev_name, 4, seeds),
+                          (dev_name, 8, seeds), ("cpu", 8, seeds)):
+        path = os.path.join(tmp, f"farm-{len(runs)}.jsonl")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "foundationdb_tpu_torch.tools.seed_farm",
+             "--device", dev_, "--jobs", str(jobs), "--seeds", str(n),
+             "--out", path], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=900)
+        if p.returncode not in (0, 1) or "{" not in p.stdout:
+            fail(f"seed farm --device {dev_} --jobs {jobs}: rc "
+                 f"{p.returncode} {p.stderr[-2000:]}")
+        runs.append({
+            "device": dev_, "jobs": jobs,
+            "summary": json.loads(p.stdout[p.stdout.index("{"):]),
+            "seeds": [json.loads(ln) for ln in open(path)],
+            "wall_s": time.perf_counter() - t0})
+    return runs
+
+
+def tools_phase(card_trace: str, cpu_trace: str) -> dict:
+    """The port's trace_tool and metrics_tool command lines (``--json``)
+    over one chaos seed's trace from the card and the same seed's from
+    the CPU (phase 23's seed 0)."""
+    import contextlib
+    import io
+
+    from foundationdb_tpu_torch.tools import metrics_tool, trace_tool
+    out = {}
+    for where, path in (("card", card_trace), ("cpu", cpu_trace)):
+        rep = {}
+        for name, main_, argv in (
+                ("trace", trace_tool.main, [path, "--json"]),
+                ("metrics", metrics_tool.main, ["summary", path, "--json"]),
+                ("recovery", metrics_tool.main, ["recovery", path, "--json"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main_(argv)
+            if rc != 0:
+                fail(f"{name} tool over {path}: rc {rc}")
+            rep[name] = json.loads(buf.getvalue())
+        out[where] = rep
+    return out
+
+
+def _no_host_clock(x):
+    """A tool's report without the fields taken on the host's clock."""
+    if isinstance(x, dict):
+        return {k: _no_host_clock(v) for k, v in x.items()
+                if not k.endswith(("_ms", "_us", "_s", "_seconds"))}
+    if isinstance(x, list):
+        return [_no_host_clock(v) for v in x]
+    return x
+
+
+def check_farm_phase(runs: list, tools: dict, card: str) -> str:
+    """Phase 26's gates; returns its one-line result."""
+    cpu = {r["seed"]: r for r in runs[-1]["seeds"]}
+
+    def outcome(r):
+        return {k: v for k, v in r.items() if k not in HOST_FIELDS}
+    rates = {}
+    for i, run in enumerate(runs):
+        dev_, jobs, s = run["device"], run["jobs"], run["summary"]
+        rates[f"{dev_}/{jobs}"] = s["seeds_per_minute"]
+        say(f"seed farm --device {dev_} --jobs {jobs}: {s['seeds']} seeds, "
+            f"{s['ok']} ok, {s['seeds_per_minute']:.4f} seeds/min "
+            f"({s['elapsed_s']} s); failure buckets "
+            f"{json.dumps(s['failure_buckets'])} ({card})")
+        if i == len(runs) - 1:
+            continue
+        peaks = [r.get("device_peak_bytes") for r in run["seeds"]]
+        k1 = [r.get("kernel_launches", {}).get("commit_chain", 0)
+              for r in run["seeds"]]
+        k3 = [r.get("kernel_launches", {}).get("hist_check", 0)
+              for r in run["seeds"]]
+        say(f"seed farm --device {dev_} --jobs {jobs}: each child's peak "
+            f"allocated bytes {peaks}; K1 launches {k1}")
+        diff = [r["seed"] for r in run["seeds"]
+                if outcome(r) != outcome(cpu[r["seed"]])]
+        if diff:
+            fail(f"seed farm --jobs {jobs}: seeds {diff} differ between the "
+                 f"card and the CPU: {[run['seeds'][s] for s in diff][:1]}")
+        if dev_ == "cuda" and any(r["ok"] and (k != m or not k) for r, k, m
+                                  in zip(run["seeds"], k1, k3)):
+            fail(f"a seed on the card launched K1 {k1} and K3 {k3}")
+        cpu_buckets = {}
+        for r in cpu.values():
+            if not r["ok"] and r["seed"] < s["seeds"]:
+                cpu_buckets.setdefault(r["error"][:120], []).append(r["seed"])
+        if s["failure_buckets"] != {k: sorted(v)
+                                    for k, v in cpu_buckets.items()}:
+            fail(f"the card's failure buckets {s['failure_buckets']} differ "
+                 f"from the CPU's {cpu_buckets}")
+    both = [(r["seed"], r["error"][:120]) for r in cpu.values()
+            if not r["ok"]]
+    say(f"seed farm: seeds failing on the card and the CPU alike (seed, "
+        f"bucket): {both}")
+    if runs[-1]["summary"]["ok"] == 0:
+        fail("no seed passed on the CPU")
+    c, p = tools["card"], tools["cpu"]
+    eq = {k: _no_host_clock(c[k]) == _no_host_clock(p[k]) for k in c}
+    say(f"trace tools over chaos seed 0's trace, card against cpu: "
+        f"summaries equal without the clock fields {eq}, with them "
+        f"{c == p}; trace_tool "
+        f"{json.dumps(c['trace'])[:300]}; metrics_tool summary "
+        f"{json.dumps(c['metrics'])[:300]}")
+    if not all(eq.values()):
+        fail("the trace tools' summaries of the card's and the CPU's traces "
+             "differ")
+    return (f"phase 26: seeds/min {json.dumps(rates)}, card results equal "
+            f"to the CPU's, trace summaries equal ({card})")
+
+
+# --------------------------------------------------------------------------
+# phase 27: the resolve stage of the perf smoke
+
+
+def _cloned(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cloned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+def held_to_plain_resolver():
+    """Records every K3 (hist_check) and K1 (commit_chain) call the
+    resolver makes: the fused group's two launches a batch
+    (``GroupLaunches.run``) and the single-batch core's wrapper calls.
+    Each record keeps copies, taken on the stream in order, of the
+    call's inputs before it and of its outputs after it, for
+    ``resolver_calls_err``.  Returns (calls, restore)."""
+    import inspect
+
+    from foundationdb_tpu_torch.ops import conflict_torch as CT
+    from foundationdb_tpu_torch.ops import kernels as K
+    calls: list = []
+    real_run, real_h, real_c = K.GroupLaunches.run, CT.hist_check, \
+        CT.commit_chain
+    sig_h, sig_c = inspect.signature(real_h), inspect.signature(real_c)
+    K1_OUT = ("verdicts", "committed", "slab")
+
+    def k1_record(c: dict, version, version_t):
+        calls.append(("commit_chain",
+                      _cloned({k: v for k, v in c.items() if k not in K1_OUT
+                               and k not in ("version", "version_t")}),
+                      _cloned({k: c.get(k) for k in K1_OUT}),
+                      version if version_t is None else version_t.clone()))
+
+    def run(self, k, version, version_t):
+        h, c = self.views(k)
+        hin = _cloned(h)
+        real_run(self, k, version, version_t)
+        calls.append(("hist_check", hin, h["hit"].clone()))
+        k1_record(c, version, version_t)
+
+    def hist_check(*a, **kw):
+        b = sig_h.bind(*a, **kw)
+        b.apply_defaults()
+        hin = _cloned(dict(b.arguments))
+        out = real_h(*a, **kw)
+        calls.append(("hist_check", hin, b.arguments["hit"].clone()))
+        return out
+
+    def commit_chain(*a, **kw):
+        b = sig_c.bind(*a, **kw)
+        b.apply_defaults()
+        out = real_c(*a, **kw)
+        k1_record(dict(b.arguments), b.arguments["version"],
+                  b.arguments["version_t"])
+        return out
+
+    def restore():
+        K.GroupLaunches.run = real_run
+        CT.hist_check, CT.commit_chain = real_h, real_c
+    K.GroupLaunches.run = run
+    CT.hist_check, CT.commit_chain = hist_check, commit_chain
+    return calls, restore
+
+
+def resolver_calls_err(calls) -> dict:
+    """Each recorded K3 and K1 call against its plain version on the
+    recorded tensors: {kernel: (calls, max abs error)}."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import kernels as K
+    out = {"hist_check": [0, 0], "commit_chain": [0, 0]}
+    for name, a, got, *rest in calls:
+        if name == "hist_check":
+            want = a["hit"] | K.hist_check_select_plain(
+                a["rb"], a["re"], a["snap"], a["width"], a["points"],
+                a["full"], a.get("window"), a.get("edge"),
+                a.get("floor")).to(torch.int32)
+            err = int((want - got).abs().max())
+        else:
+            v, c, sb, se = K.commit_chain_plain(
+                a["rb"], a["re"], a["wb"], a["we"], a["hit"], a["snap"],
+                a["floor"], a["width"], a["points"])
+            errs = [(v.to(torch.int32) - got["verdicts"].to(torch.int32))
+                    .abs().max(),
+                    (c.to(torch.int32) - got["committed"].to(torch.int32))
+                    .abs().max()]
+            if got["slab"] is not None:
+                slab_b, slab_e, slab_v = got["slab"]
+                errs += [(sb - slab_b).abs().max(), (se - slab_e).abs().max()]
+                if slab_v is not None:
+                    version = rest[0]
+                    errs.append((slab_v - (version if isinstance(
+                        version, int) else version.reshape(()))).abs().max())
+            err = int(max(int(e) for e in errs))
+        out[name][0] += 1
+        out[name][1] = max(out[name][1], err)
+    return out
+
+
+def resolve_stage_phase(dev) -> dict:
+    """Phase 27: the port's perf_smoke resolve stage with its ``cuda``
+    backend on ``dev``, at the reference's shapes (96 batches of 16 txns
+    of up to 2 point ranges, 16-byte keys, a ring of 2048 slots, a window
+    of 64): timed, with its launches counted; then the same stage again
+    with every K3 and K1 call recorded and held to its plain version."""
+    from foundationdb_tpu_torch.ops import kernels as K
+    from foundationdb_tpu_torch.tools import perf_smoke as ps
+    K.reset_launches()
+    elapsed, stats = ps.resolve_pipeline_seconds(
+        device=dev, deadline_s=ps.RESOLVE_BUDGET_S)
+    sync(dev)
+    got = {k: v.launches for k, v in K.KERNELS.items()}
+    calls, restore = held_to_plain_resolver()
+    K.reset_launches()
+    try:
+        _, again = ps.resolve_pipeline_seconds(
+            device=dev, deadline_s=ps.RESOLVE_BUDGET_S)
+        sync(dev)
+    finally:
+        restore()
+    got_again = {k: v.launches for k, v in K.KERNELS.items()}
+    return {"elapsed_s": elapsed, "stats": stats, "launches": got,
+            "launches_again": got_again,
+            "again_equal": again["verdicts"] == stats["verdicts"],
+            "errors": resolver_calls_err(calls),
+            "floor": ps.RESOLVE_AB_FLOOR}
+
+
+def check_resolve_stage(r: dict, card: str = "") -> str:
+    """Phase 27's gates; returns its one-line result."""
+    s, got, err = r["stats"], r["launches"], r["errors"]
+    say(f"resolve stage on {s['device']}: {s['n_txns']} txns, verdicts equal "
+        f"to the numpy twin, {s['too_old_verdicts']} TOO_OLD; pipelined "
+        f"{s['pipelined_txns_per_sec']:.3f} txns/s, unpipelined "
+        f"{s['unpipelined_txns_per_sec']:.3f} txns/s, speedup "
+        f"{s['speedup']:.4f} (the reference's floor {r['floor']}); "
+        f"{s['dispatches']} dispatches, group mean {s['group_mean']}, "
+        f"{s['dispatch_us_per_batch']:.1f} host us a batch; "
+        f"{r['elapsed_s']:.3f} s; launches {got}; the recorded rerun's "
+        f"launches {r['launches_again']}, verdicts equal "
+        f"{r['again_equal']}, calls held to the plain versions (calls, "
+        f"max_abs_err) {err} ({card})")
+    if s["too_old_verdicts"] <= 0:
+        fail("the resolve stage produced no TOO_OLD verdict")
+    if got["commit_chain"] != got["hist_check"] or got["commit_chain"] == 0:
+        fail(f"the resolve stage launched {got}")
+    if not r["again_equal"] or any(
+            err[k][0] != r["launches_again"][k] or err[k][1]
+            for k in err):
+        fail("a K3 or K1 call of the resolve stage differs from its plain "
+             "version, or a launch went unrecorded")
+    return (f"phase 27: pipelined {s['pipelined_txns_per_sec']:.3f} txns/s, "
+            f"unpipelined {s['unpipelined_txns_per_sec']:.3f}, speedup "
+            f"{s['speedup']:.4f} against the floor {r['floor']}; K1 = K3 = "
+            f"{got['commit_chain']}; {err['commit_chain'][0]} K1 and "
+            f"{err['hist_check'][0]} K3 calls equal to plain ({card})")
+
+
 def main() -> None:
     try:
         import torch
@@ -3316,6 +4215,12 @@ def main() -> None:
             f"{r['kernels']} kernels, {r['device_us']:.3f} us, {r['U']} "
             f"update slots ({r['n_upd']} real), {r['bytes']} bytes, "
             f"bound_ms={r['bytes'] / HBM_BYTES_PER_S * 1e3:.8f} (bytes)")
+        SUMMARY.append(
+            f"B6 {name} (group of 64, B={B}, R={R}): ms "
+            f"{r['device_us'] / 1e3:.7f}, launches {r['kernels']} torch "
+            f"kernels a group, bound_ms "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.8f} (bytes), plain_ms = "
+            f"ms (torch ops), library_ms null")
 
     # 8. the smallest dictionary under range streams that make it evict.
     # Nearly every endpoint is new, 1152 a batch: groups of 16 batches
@@ -3502,23 +4407,46 @@ def main() -> None:
         t0 = time.perf_counter()
         got24 = check_specs_phase(specs_phase(dev, tmp))
         say(f"phase 24: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+        # 25. the operator's deployment: fdbmonitor, fdbcli and the C ABI
+        # against --device cuda servers; 26. the seed farm on the card and
+        # the trace tools over phase 23's seed-0 traces; 27. the resolve
+        # stage of the perf smoke
+        t0 = time.perf_counter()
+        SUMMARY.append(check_deployment_phase(deployment_phase("cuda"),
+                                              CARD))
+        say(f"phase 25: {time.perf_counter() - t0:.1f} s ({CARD})")
+        t0 = time.perf_counter()
+        SUMMARY.append(check_farm_phase(
+            farm_phase(tmp), tools_phase(
+                os.path.join(tmp, "chaos0-card.jsonl"),
+                os.path.join(tmp, "chaos0-cpu.jsonl")), CARD))
+        say(f"phase 26: {time.perf_counter() - t0:.1f} s ({CARD})")
+    t0 = time.perf_counter()
+    r27 = resolve_stage_phase(dev)
+    SUMMARY.append(check_resolve_stage(r27, CARD))
+    got27 = r27["launches"]
+    say(f"phase 27: {time.perf_counter() - t0:.1f} s ({CARD})")
     report["prefix_search"]["max_abs_err"] = max(
         report["prefix_search"]["max_abs_err"], err20, err21)
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
                 *gots11, got12, *gots13, *gots14, *gots15, got16, got18,
-                got20, got21, got22, got23, got24):
+                got20, got21, got22, got23, got24, got27):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
-    # 25. the kernels line, then the result.  The resolver kernels'
-    # launches are those of the mako run with RESOLVER_RING_INPLACE (phase
-    # 6), the one run that takes all three; prefix_search's are those of
-    # the durable read-back (phase 12, every engine); each phase printed
-    # its own counts above, and phases 20-24's stand in each row too.
+    # 28. the compact summary, the kernels line, then the result.  The
+    # resolver kernels' launches are those of the mako run with
+    # RESOLVER_RING_INPLACE (phase 6), the one run that takes all three;
+    # prefix_search's are those of the durable read-back (phase 12, every
+    # engine); each phase printed its own counts above, and phases 20-24's
+    # and 27's stand in each row too (phases 25 and 26 launch in their
+    # server and seed processes: the status document's dispatches and
+    # each seed's launches show them).
     counts = dict(got7, prefix_search=got12["prefix_search"])
     by_phase = {"20": got20, "21": got21, "22": got22, "23": got23,
-                "24": got24}
+                "24": got24, "27": got27}
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),
@@ -3542,7 +4470,17 @@ def main() -> None:
                      **{k: r[k] for k in ("latency_bound_ms", "chain_step_ms",
                                           "level_ms", "sim_shapes")
                         if k in r}})
-    say(f"total {time.perf_counter() - t_start:.1f} s")
+    for k in line:
+        say(f"summary {k['name']}: ms {k['ms']}, launches {k['launches']} "
+            f"(by phase {json.dumps(k['launches_by_phase'])}), bound_ms "
+            f"{k['bound_ms']} ({k['bound_by']}"
+            + (f"; latency {k['latency_bound_ms']}"
+               if "latency_bound_ms" in k else "")
+            + f"), plain_ms {k['plain_ms']}, library_ms {k['library_ms']}, "
+            f"max_abs_err {k['max_abs_err']}")
+    for ln in SUMMARY:
+        say(f"summary {ln}")
+    say(f"total {time.perf_counter() - t_start:.1f} s ({CARD})")
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

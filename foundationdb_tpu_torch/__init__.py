@@ -5,9 +5,10 @@ same inputs and must give bit-identical verdicts and ring state.  It
 imports ``torch`` and numpy and nothing of ``jax`` or
 ``foundationdb_tpu``: the jax-free modules it needs are its own copies.
 
-Ported so far, the resolver's conflict-detection path, the in-process
-commit path around it, the multi-process cluster, and the consumers of
-the commit stream:
+The resolver's conflict-detection path, the in-process commit path
+around it, the multi-process cluster, the consumers of the commit
+stream, simulation testing, and the operator's and the application's
+entry points:
   runtime/   event loop, sim, knobs, trace, errors, RNG (copies)
   ops/       key encoding, batch format, the conflict core on torch
              (conflict_torch), its hand kernels (kernels + csrc/*.cu),
@@ -29,11 +30,21 @@ the commit stream:
              bucket, the raw tag stream, cluster-to-cluster DR (copies)
   layers/    read-through cache, watches, the shared feed consumer,
              secondary indexes, the layer consistency checker (copies)
-  sim/       the simulated cluster: machines, kills, reboots, regions
+  sim/       the simulated cluster: machines, kills, reboots, regions;
+             one seeded chaos run (run_one) and the spec files
   server.py  one cluster process: ``python -m foundationdb_tpu_torch.server
              -C fdb.cluster -l IP:PORT [--device cuda|cpu]``
-  native/    the C++ conflict set and key codec, built with g++ into
-             _build/
+  cli.py     fdbcli: ``python -m foundationdb_tpu_torch.cli -C fdb.cluster
+             --exec "set k v; get k; status"`` (a client: no device)
+  monitor.py fdbmonitor: starts, restarts and stops the conf's servers,
+             each with the conf's ``device`` (default ``cuda``)
+  capi_host.py, bindings/
+             the C ABI (bindings/c, libfdbtpu_c.so in _build/), the
+             Python binding over it and the bindingtester's stack machine
+  tools/     the seed farm (``--device cuda|cpu``), the trace and metrics
+             tools, the resolve stage of the perf smoke
+  native/    the C++ conflict set, the key codec and the C ABI's shim,
+             built with g++ into _build/
   bench/     the mako workload generator, the end-to-end mako loop,
              the resolver profiles
 

@@ -8,7 +8,10 @@ MachineAttrition + RandomClogging under BUGGIFY, checks invariants, exits
 
 runs every resolver and storage read mirror on the CUDA card unless
 ``--device cpu`` asks for the kernels' plain versions; without a card
-the default fails like any other run (exit 1, ``"ok": false``).
+the default fails like any other run (exit 1, ``"ok": false``).  On the
+card the last line also gives ``device_peak_bytes``, the most device
+memory the run allocated at once, and ``kernel_launches``, the hand
+kernels' launch counts.
 """
 
 from __future__ import annotations
@@ -137,7 +140,14 @@ def main(argv=None) -> int:
         print(json.dumps({"seed": args.seed, "ok": False,
                           "error": f"{type(e).__name__}: {e}"[:300]}))
         return 1
-    print(json.dumps({"seed": args.seed, "ok": True, "results": results}))
+    out = {"seed": args.seed, "ok": True, "results": results}
+    if device.type == "cuda":
+        # the most device memory this run held at once (a seed farm's
+        # children share one card), and the hand kernels it launched
+        from ..ops.kernels import KERNELS
+        out["device_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["kernel_launches"] = {k: v.launches for k, v in KERNELS.items()}
+    print(json.dumps(out))
     return 0
 
 

@@ -11,6 +11,7 @@ the endpoint dictionary off and on.
 import ast
 import asyncio
 import os
+import re
 
 import numpy as np
 import pytest
@@ -144,6 +145,15 @@ def test_resolver_default_device_is_the_card(monkeypatch):
     assert make_conflict_backend(knobs, device=CPU).cs.device == CPU
 
 
+# the operator's and the application's entry points and the tools, which
+# the scans below must cover
+ENTRY_POINTS = [os.path.join(ROOT, "foundationdb_tpu_torch", p) for p in (
+    "cli.py", "monitor.py", "capi_host.py", "server.py",
+    "bindings/python/fdbtpu.py", "bindings/bindingtester/stack_tester.py",
+    "tools/seed_farm.py", "tools/trace_tool.py", "tools/metrics_tool.py",
+    "tools/perf_smoke.py")]
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "foundationdb_tpu_torch")
     out = [os.path.join(ROOT, "chip_smoke.py")]
@@ -168,7 +178,32 @@ def test_port_imports_nothing_of_jax_or_the_reference():
                 if n.split(".")[0] in banned:
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert len(_port_sources()) > 20
+    assert set(ENTRY_POINTS) <= set(_port_sources())
     assert not bad, bad
+
+
+def test_port_c_shim_hosts_the_port_client():
+    """The C ABI's shim imports its host module by a string that no scan
+    of Python imports sees: it must name the port's ``capi_host`` and no
+    module of the JAX package, and so must every other native source."""
+    pkg = os.path.join(ROOT, "foundationdb_tpu_torch")
+    names = {}
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith((".cpp", ".cu", ".cuh", ".h", ".c")):
+                path = os.path.join(d, f)
+                # dotted module names (a comment's file path is no import)
+                names[os.path.relpath(path, ROOT)] = set(re.findall(
+                    r"foundationdb_tpu\w*(?:\.\w+)+", open(path).read()))
+    shim = os.path.join("foundationdb_tpu_torch", "bindings", "c",
+                        "fdbtpu_c.cpp")
+    assert 'PyImport_ImportModule("foundationdb_tpu_torch.capi_host")' in \
+        open(os.path.join(ROOT, shim)).read()
+    assert "foundationdb_tpu_torch.capi_host" in names[shim]
+    bad = {p: sorted(n for n in ns
+                     if n.split(".")[0] != "foundationdb_tpu_torch")
+           for p, ns in names.items()}
+    assert not {p: n for p, n in bad.items() if n}, bad
 
 
 def _bound_names(path: str) -> set:
@@ -252,4 +287,5 @@ def test_port_has_no_dangling_imports():
                             bad.append(f"{rel}:{node.lineno}: no module "
                                        f"{a.name}")
     assert os.path.isdir(pkg) and seen > 500
+    assert set(ENTRY_POINTS) <= set(_port_sources())
     assert not bad, bad

@@ -22,8 +22,9 @@ finds the two replicas of [b"\\x80", b"\\xff\\xff\\xff") disagreeing on
 ``\\xff/keyServers/layout`` at virtual time 22.13, after the reboot of
 10.1.0.4 in epoch 4.  The cause is a live move whose flip commit was
 retried into a new epoch (``test_live_move_flip_is_fenced_on_its_epoch``
-below); the port repairs it, so its twin here fails only at the
-reference's run, as the reference's own test does.
+below); the port repairs it.  So seed 3 runs as two tests: the port's
+run held to the reference test's assertions, and the reference's run
+held to its known fault, exactly.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import types
 
 import pytest
 import torch
@@ -45,11 +47,87 @@ from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
 HARNESS = "test_sim_harness.py"
 
 
-@pytest.mark.parametrize("seed", [0, 3, 17])
+@pytest.mark.parametrize("seed", [0, 17])
 def test_attrition_clogging_buggify_invariants(seed, monkeypatch):
     ref = hold_to_reference(HARNESS, "test_attrition_clogging_buggify_invariants",
                             monkeypatch, args={"seed": seed}, recovers=True)
     assert results_of(ref, "simulate")[0]["Cycle"]["transactions"] == 60
+
+
+def test_attrition_clogging_buggify_invariants_seed_3_on_the_port(
+        monkeypatch):
+    """Seed 3 as the reference test has it, on the port (its simulated
+    cluster on the CPU), with the test's own assertions: they hold,
+    since the port fences a live move's flip on its epoch."""
+    shown = run_reference_test(HARNESS,
+                               "test_attrition_clogging_buggify_invariants",
+                               PORT, monkeypatch, args={"seed": 3})
+    res = results_of(shown, "simulate")[0]
+    assert res["Cycle"]["transactions"] == 60
+    assert res["ConsistencyCheck"]["shards_checked"] >= 2
+
+
+def replica_reads(log: dict):
+    """A replacement for the reference's ``ConsistencyCheck._check_once``
+    that puts every replica's rows it reads into ``log``, keyed by
+    (range end, replica index)."""
+    from foundationdb_tpu.workloads.consistency import \
+        ConsistencyCheckWorkload as CC
+
+    class Replica:
+        def __init__(self, rep, i):
+            self.rep, self.i = rep, i
+
+        async def get_key_values(self, b, e, version, limit):
+            kvs, more = await self.rep.get_key_values(b, e, version, limit)
+            log.setdefault((bytes(e), self.i), []).extend(
+                (bytes(k), bytes(v)) for k, v in kvs)
+            return kvs, more
+
+    def recording(real):
+        def storage_for_key(key):
+            group = real(key)
+            return types.SimpleNamespace(replicas=[
+                Replica(r, i) for i, r in
+                enumerate(getattr(group, "replicas", [group]))])
+        return storage_for_key
+
+    async def check_once(self, _real=CC._check_once):
+        cluster = getattr(self.db, "view", None) or self.db.cluster
+        cluster.storage_for_key = recording(cluster.storage_for_key)
+        try:
+            return await _real(self)
+        finally:
+            del cluster.storage_for_key
+    return check_once
+
+
+def test_attrition_clogging_buggify_invariants_seed_3_reference_fault(
+        monkeypatch):
+    """Seed 3 on the reference fails, and exactly as recorded: its
+    ConsistencyCheck finds the two replicas of [b"\\x80",
+    b"\\xff\\xff\\xff") disagreeing on ``\\xff/keyServers/layout`` and on
+    nothing else (the live-move flip fault the port repairs, see
+    ``test_live_move_flip_is_fenced_on_its_epoch``)."""
+    from foundationdb_tpu.workloads.consistency import \
+        ConsistencyCheckWorkload
+    log: dict = {}
+    monkeypatch.setattr(ConsistencyCheckWorkload, "_check_once",
+                        replica_reads(log))
+    with pytest.raises(AssertionError,
+                       match="workload ConsistencyCheck check failed"):
+        run_reference_test(HARNESS,
+                           "test_attrition_clogging_buggify_invariants",
+                           REF, monkeypatch, args={"seed": 3})
+    assert (b"\xff\xff\xff", 1) in log
+    diverged = {}
+    for (end, i), rows in log.items():
+        if i:
+            a, b = dict(log[(end, 0)]), dict(rows)
+            keys = {k for k in a.keys() | b.keys() if a.get(k) != b.get(k)}
+            if keys:
+                diverged[end] = keys
+    assert diverged == {b"\xff\xff\xff": {b"\xff/keyServers/layout"}}
 
 
 @pytest.mark.parametrize("test", ["test_sim_runs_without_buggify",

@@ -287,16 +287,31 @@ class HostCluster:
 REF, PORT = "foundationdb_tpu", "foundationdb_tpu_torch"
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 
+# ``reference_module`` edits for the reference's multi-process scenarios
+# run against the port: every server it spawns on the CPU (the kernels'
+# plain versions), and one torch thread for each process it spawns with
+# the scenario's environment, since several share this host's cores
+SERVER_ON_CPU = ('"foundationdb_tpu_torch.server",',
+                 '"foundationdb_tpu_torch.server", "--device", "cpu",')
+ONE_THREAD = ('PYTHONPATH=REPO)', 'PYTHONPATH=REPO, OMP_NUM_THREADS="1")')
 
-def reference_module(file: str, name: str) -> types.ModuleType:
+
+def reference_module(file: str, name: str,
+                     edits: tuple = ()) -> types.ModuleType:
     """The reference's test module ``file`` with every import of the JAX
     package pointed at package ``name``: its scenarios, its seeds and
-    its own assertions, run against either package."""
+    its own assertions, run against either package.  The package's name
+    changes in command lines too (``-m foundationdb_tpu.server``), and
+    each ``(old, new)`` of ``edits`` is then replaced in the source, every
+    ``old`` at least once."""
     path = os.path.join(_TESTS, file)
     with open(path) as f:
         src = f.read()
     if name != REF:
         src = re.sub(r"\bfoundationdb_tpu\b", name, src)
+    for old, new in edits:
+        assert old in src, f"{file} has no {old!r}"
+        src = src.replace(old, new)
     mod = types.ModuleType(f"_{name}_{file[:-3]}")
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
@@ -514,10 +529,11 @@ def fresh_run(name: str) -> None:
 
 def run_reference_test(file: str, test: str, name: str, mp,
                        device=None, retire: bool = True,
-                       args=None) -> dict:
+                       args=None, edits: tuple = ()) -> dict:
     """Run the reference's ``file::test`` (with the parameters
     ``args``: a dict, or a function of the scenario's module that
-    returns one) against package ``name`` with its own assertions, from
+    returns one; its source changed by ``edits`` as ``reference_module``
+    changes it) against package ``name`` with its own assertions, from
     fresh process state (``fresh_run``); return what it
     showed: the transcript, each simulated disk's bytes, and the
     LayerMismatch events it traced.  The port runs as
@@ -529,7 +545,7 @@ def run_reference_test(file: str, test: str, name: str, mp,
         if name == PORT:
             patch_port(m, device, retire)
         # the scenario's module binds the recorded functions by name
-        mod = reference_module(file, name)
+        mod = reference_module(file, name, edits)
         fn = getattr(mod, test)
         kw = (args(mod) if callable(args) else args) or {}
         with captured_trace(name) as events:
@@ -563,19 +579,23 @@ def assert_same(ref: dict, port: dict) -> None:
 
 
 def hold_to_reference(file: str, test: str, mp, args=None,
-                      recovers: bool = False, port_args=None) -> dict:
+                      recovers: bool = False, port_args=None,
+                      port_edits: tuple = ()) -> dict:
     """The reference's ``file::test`` run on both packages, each with its
     own assertions, and what they showed held equal (``assert_same``);
     returns the reference's.  ``port_args`` are the port's parameters
-    where they differ from the reference's ``args``.  A scenario that
-    ``recovers`` runs the port twice: as it is, with the assertions, and
-    without the resolver retire (see ``patch_port``) for the comparison."""
+    where they differ from the reference's ``args``, ``port_edits`` the
+    changes to the scenario's source for the port (``reference_module``).
+    A scenario that ``recovers`` runs the port twice: as it is, with the
+    assertions, and without the resolver retire (see ``patch_port``) for
+    the comparison."""
     ref = run_reference_test(file, test, REF, mp, args=args)
     port_args = args if port_args is None else port_args
     if recovers:
-        run_reference_test(file, test, PORT, mp, args=port_args)
+        run_reference_test(file, test, PORT, mp, args=port_args,
+                           edits=port_edits)
     port = run_reference_test(file, test, PORT, mp, args=port_args,
-                              retire=not recovers)
+                              retire=not recovers, edits=port_edits)
     assert_same(ref, port)
     return ref
 
