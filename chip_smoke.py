@@ -52,7 +52,7 @@ commit and storage paths on the card and exits non-zero on any failure:
    ``resolve_wire``, and txns/s for each and for the C++ set;
 10. the in-process commit path end to end: mako clients (100000 keys,
    zipf 0.99, 2 reads + 2 writes a txn, 512 clients, 2 s warm-up then
-   8 s measured) through the port's Cluster at the reference's device
+   4 s measured) through the port's Cluster at the reference's device
    operating point (bench.e2e.OPERATING_POINT), on the ``cuda`` backend
    and then the ``cpp`` backend: txns/s, latency percentiles, abort
    rate and codes, the commit path's stage breakdown, the resolver's
@@ -66,8 +66,8 @@ commit and storage paths on the card and exits non-zero on any failure:
    counters' sum read back must equal the acknowledged commits;
 11. the multi-resolver (bench.multi_resolver): the sharded step at S = 1,
    2, 4, 8 partitions (B=64, R=2, width 16, mako over 200000 keys, 256000
-   history slots split S ways, window 0), its first 32 batches against
-   the CPU plain path (verdicts and every partition's ring), 512 timed
+   history slots split S ways, window 0), its first 8 batches against
+   the CPU plain path (verdicts and every partition's ring), 128 timed
    batches with K3 = K1 = S x batches launches (K2 twice that), B9's device time
    under the profiler, a profiled pass at S = 1 and 8; the dryrun's partition-contained stream at S = 8 against the
    exact C++ set as one resolver; the live routed mesh at 1 and 4
@@ -84,9 +84,9 @@ commit and storage paths on the card and exits non-zero on any failure:
    call equal to the plain version on its own tensors; the verdict
    bitmask against the raw vectors and the in-place ring against the
    rebuild, each pair's verdicts equal;
-14. YCSB workload F (bench.ycsb, BASELINE.md config 3): 1000000 rows of
+14. YCSB workload F (bench.ycsb, BASELINE.md config 3): 200000 rows of
    one 100-byte field under 23-byte keys, zipf 0.99 read-modify-write,
-   256 clients, 2 s warm-up then 8 s measured, on the ``cuda`` backend at
+   256 clients, 2 s warm-up then 4 s measured, on the ``cuda`` backend at
    the operating point and then the ``cpp`` backend with its backend knob
    alone: ops/s, latency, abort rate and codes (only 1007 and 1020), the
    load's time, K1 = K3 launches (nonzero on cuda); every row read back
@@ -214,7 +214,26 @@ commit and storage paths on the card and exits non-zero on any failure:
    latency bound: B chain steps at the step time measured in phase 3;
    B8 its latency bound: one probe's search chain at N = 2**24 measured
    in phase 3; K1 and K3 their times at the simulator's shapes); the
-   last line is the result.
+   last line is the result;
+29. (started after phase 17; phases 14, 15 and 18-25 run beside its
+   host stages) the north star in full as its own process on the card:
+   ``python3 -m foundationdb_tpu_torch.bench.north_star`` (the resolver
+   at BASELINE config 2, 4096 batches x 64 txns over 1M 32-byte keys,
+   cuda against cpp; the commit path end to end; YCSB-F and TPC-C; the
+   multi-resolver and the device plane in their own processes; the host
+   stages; the abort-parity gate).  Its device stages run alone.  Once
+   it reaches its host stages (host-bound, one or two cores; the card
+   serves their storage servers' reads and the abort-parity gate), this
+   process runs beside them ``--quick`` (one JSON line, exit 0) and
+   phases 14, 15 and 18-25, and waits for its end before phase 26: the
+   seconds of those phases, 14's and 15's rates and the north star's
+   host-stage numbers of this run are taken under that contention.
+   Gates: exit 0, no stage error or timeout, ``backend_used`` cuda,
+   every verdict gate true with 0 mismatches against cpp, 0 dictionary
+   fallbacks and 0 abort-parity safety violations, every kernel launched
+   (the north star's launches, its subprocesses' included, in
+   ``launches_by_phase["29"]``); printed: its value, ``vs_baseline``,
+   the cpp baseline and each stage's seconds.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -239,13 +258,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 MAKO_BATCHES = 2048
 WIRE_BATCHES = 4096
-SCALING_BATCHES = 512
+# phases 10, 11, 14 and 15 run at a smaller depth, so that the smoke
+# with the north star (phase 29, which runs their paths in full) stays
+# inside its time limit: 4 s measured for 8 (10, 14, 15), 128 scaling
+# batches for 512 and 8 checked for 32 (11), 200000 YCSB rows for
+# 1000000 (14)
+SCALING_BATCHES = 128
 DURABLE_KEYS = 100_000
 B, R, WIDTH = 64, 8, 32
-E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 8.0
+E2E_CLIENTS, E2E_WARMUP_S, E2E_SECONDS = 512, 2.0, 4.0
 # BASELINE.md configs 3 and 4 at the reference bench.py's device client
 # counts (its _TPU_CLIENTS)
-YCSB_ROWS, YCSB_FIELD, YCSB_CLIENTS = 1_000_000, 100, 256
+YCSB_ROWS, YCSB_FIELD, YCSB_CLIENTS = 200_000, 100, 256
 TPCC_CLIENTS = 128
 # phase 18: more keys than a memory engine holds pending before its key
 # index takes a base run (1024), so the read mirror serves
@@ -264,6 +288,16 @@ CARD = ""          # nvidia-smi's name and power limit, set by main
 # the compact per-kernel and per-phase summary printed before the kernels
 # line, so that it stays in the tail of a long output
 SUMMARY: list[str] = []
+
+
+_LAP = [0.0]
+
+
+def lap(phases: str) -> None:
+    """Print the seconds since the last lap: phases 1-17's times."""
+    now = time.perf_counter()
+    say(f"phase {phases}: {now - _LAP[0]:.1f} s ({CARD})")
+    _LAP[0] = now
 
 
 def fail(msg: str) -> None:
@@ -1136,7 +1170,7 @@ def counter_run(dev, clients: int = 64, seconds: float = 3.0,
 
 
 def multi_resolver_phase(dev, batches: int = SCALING_BATCHES,
-                         check_batches: int = 32,
+                         check_batches: int = 8,
                          history_slots: int = 256_000,
                          mesh_seconds: tuple = (1.0, 2.5)) -> list:
     """bench.multi_resolver at the reference's run_scaling configuration
@@ -3567,19 +3601,35 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                     # server restarted at once is an empty coordinator,
                     # which can strand the new generation (ROADMAP C)
                     os.kill(d.mon.pid, signal.SIGSTOP)
+                    # every attempt of the set after the kill: its start
+                    # from the kill, its outcome and its seconds
+                    attempts = out.setdefault("failover_attempts", [])
                     try:
                         os.kill(d.started()[leader][-1], signal.SIGKILL)
                         tk = time.perf_counter()
                         while True:
+                            ta = time.perf_counter()
                             try:
                                 got = await asyncio.wait_for(
                                     cli_.execute("set after failover"), 30)
+                                outcome = "committed" if got == "Committed" \
+                                    else str(got)[:120]
                             except asyncio.TimeoutError:
-                                got = "timeout"
+                                got = outcome = "timeout"
+                            except Exception as e:
+                                outcome = type(e).__name__
+                                raise
+                            finally:
+                                attempts.append(
+                                    [round(ta - tk, 3), outcome,
+                                     round(time.perf_counter() - ta, 3)])
                             if got == "Committed":
                                 out["failover_s"] = time.perf_counter() - tk
                                 break
                             if time.perf_counter() - tk > 240:
+                                say(f"failover attempts [start s after "
+                                    f"the kill, outcome, s]: "
+                                    f"{json.dumps(attempts)}")
                                 fail(f"no commit within 240 s of the "
                                      f"leader's kill: {got}")
                             await asyncio.sleep(0.25)
@@ -3712,6 +3762,8 @@ def check_deployment_phase(r: dict, card: str) -> str:
         f"restarted by the monitor in {r['respawn_s']:.3f} s, serving reads "
         f"through the CLI again {r['serve_after_restart_s']:.3f} s after the "
         f"kill ({card})")
+    say(f"deployment: failover attempts [start s after the kill, outcome, "
+        f"s]: {json.dumps(r['failover_attempts'])}")
     say(f"deployment: status epoch {r['status']['epoch']}, available "
         f"{r['status']['database_available']}, resolver_device "
         f"{json.dumps(dv)}; C smoke rc {rc} `{so}' in {r['c_smoke_s']:.3f} s; "
@@ -4052,6 +4104,165 @@ def check_resolve_stage(r: dict, card: str = "") -> str:
             f"{err['hist_check'][0]} K3 calls equal to plain ({card})")
 
 
+# --------------------------------------------------------------------------
+# phase 29: the north star (bench/north_star.py)
+
+
+NORTH_STAR_TIMEOUT_S = 1200
+
+
+def north_star_start(tmp: str, args=()) -> dict:
+    """Start ``python3 -m foundationdb_tpu_torch.bench.north_star [args]``
+    as its own process group on the card, stdout and stderr
+    (the roles' trace events included) in files under ``tmp``; the
+    process group is killed if this one exits first."""
+    import atexit
+    import signal
+    repo = os.path.dirname(os.path.abspath(__file__))
+    name = "north_star" + "".join(args).replace("-", "_")
+    h = {"err_path": os.path.join(tmp, name + ".err"),
+         "out_path": os.path.join(tmp, name + ".out"),
+         "t0": time.perf_counter()}
+    with open(h["err_path"], "w") as err, open(h["out_path"], "w") as out:
+        h["p"] = subprocess.Popen(
+            [sys.executable, "-m", "foundationdb_tpu_torch.bench.north_star",
+             *args], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            stdout=out, stderr=err, start_new_session=True)
+
+    def stop(p=h["p"]):
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    atexit.register(stop)
+    h["stop"] = stop
+    return h
+
+
+def north_star_wait(h: dict, marker: str,
+                    timeout: float = NORTH_STAR_TIMEOUT_S) -> bool:
+    """Wait until a line of the north star's stderr starts with ``marker``
+    (True), or it exits or ``timeout`` seconds pass (False)."""
+    deadline = time.perf_counter() + timeout
+    buf = ""
+    with open(h["err_path"], errors="replace") as f:
+        while time.perf_counter() < deadline:
+            chunk = f.read()
+            if chunk:
+                *lines, buf = (buf + chunk).split("\n")
+                if any(ln.startswith(marker) for ln in lines):
+                    return True
+            elif h["p"].poll() is not None:
+                return False
+            else:
+                time.sleep(0.5)
+    return False
+
+
+def north_star_finish(h: dict, timeout: float = NORTH_STAR_TIMEOUT_S
+                      ) -> dict:
+    """Wait for the north star (killed past ``timeout`` seconds from its
+    start): rc, the JSON line, each stage's seconds, the dictionary's
+    counts, the kernels' launches and the wall seconds."""
+    try:
+        h["p"].wait(timeout=max(1.0, h["t0"] + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        h["stop"]()
+    from foundationdb_tpu_torch.bench.stats import LAUNCHES
+    wall = time.perf_counter() - h["t0"]
+    with open(h["out_path"]) as f:
+        stdout = f.read()
+    r = {"rc": h["p"].returncode, "wall_s": wall, "stages": {}, "dict": {},
+         "launches": None, "stdout_lines": stdout.strip().splitlines(),
+         "notes": []}
+    with open(h["err_path"], errors="replace") as f:
+        for ln in f:
+            ln = ln.rstrip("\n")
+            if ln.startswith("[bench] stage ") and ln.endswith(" s") \
+                    and ": " in ln:
+                name, secs = ln[len("[bench] stage "):-2].split(": ")
+                r["stages"][name] = float(secs)
+            elif ln.startswith("[cuda] dict_"):
+                r["dict"] = {k: int(v) for k, v in
+                             (kv.split("=") for kv in ln[7:].split())}
+            elif ln.startswith(LAUNCHES):
+                r["launches"] = json.loads(ln[len(LAUNCHES):])
+            elif ln.startswith(("FATAL", "[bench] no CUDA", "Traceback",
+                                "[bench] stage ", "[bench] kernel build")):
+                r["notes"].append(ln[:300])
+    try:
+        r["line"] = json.loads(r["stdout_lines"][-1])
+    except (IndexError, ValueError):
+        r["line"] = None
+    return r
+
+
+def north_star_run(tmp: str, args=(), timeout: float = NORTH_STAR_TIMEOUT_S
+                   ) -> dict:
+    """The north star from start to end (``north_star_finish``'s
+    result)."""
+    return north_star_finish(north_star_start(tmp, args), timeout)
+
+
+def check_north_star(r: dict, quick: dict, card: str) -> tuple[dict, str]:
+    """Phase 29's gates; returns the kernels' launches and a summary
+    line."""
+    line = r["line"]
+    say(f"north star: rc {r['rc']}, {r['wall_s']:.1f} s; stage seconds "
+        f"{json.dumps(r['stages'])}; dictionary {json.dumps(r['dict'])}; "
+        f"launches {json.dumps(r['launches'])}; notes {r['notes'][:8]}")
+    if line is None:
+        fail(f"the north star printed no JSON line: {r['stdout_lines'][-3:]}")
+    keys = ("value", "vs_baseline", "baseline_cpp_commits_per_sec",
+            "serial_commits_per_sec_cuda", "serial_commits_per_sec_cpp",
+            "abort_rate", "verdict_mismatches", "grouped_pass_elapsed_s_cuda",
+            "grouped_pass_elapsed_s_cpp", "e2e_tps_cuda", "e2e_tps_cpp",
+            "ycsb_ops_per_sec_cuda", "ycsb_ops_per_sec_cpp",
+            "tpcc_tpmC_cuda", "tpcc_tpmC_cpp",
+            "abort_parity_safety_violations")
+    say(f"north star: {json.dumps({k: line.get(k) for k in keys})} "
+        f"(card idle share: not measured, no stage of the north star gives "
+        f"one; "
+        f"{card})")
+    say(f"north star line: {json.dumps(line)[:20000]}")
+    errors = sorted(k for k in line if k == "error" or k.endswith("_error"))
+    gates = {
+        "rc": r["rc"] == 0,
+        "no stage error": not errors,
+        "no stage timeout": not line.get("stages_timed_out"),
+        "backend_used cuda": line.get("backend_used") == "cuda",
+        "verdict parity": line.get("verdict_parity") is True
+        and line.get("verdict_mismatches") == 0,
+        "pipelined verdicts": line.get("pipelined_verdicts_match") is True,
+        "grouped verdicts": line.get("grouped_verdicts_match") is True,
+        "device pipeline verdicts":
+            line.get("device_pipeline_verdicts_match") is True,
+        "abort parity": line.get("abort_parity_safety_violations") == 0,
+        "dictionary": r["dict"].get("dict_dispatches", 0) > 0
+        and r["dict"].get("dict_fallbacks") == 0,
+        "every kernel launched": bool(r["launches"])
+        and all(r["launches"].get(k, 0) > 0
+                for k in ("commit_chain", "ring_append", "hist_check",
+                          "prefix_search")),
+        "--quick": quick["rc"] == 0 and len(quick["stdout_lines"]) == 1
+        and quick["line"] is not None
+        and quick["line"].get("verdict_parity") is True,
+    }
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        fail(f"the north star failed {bad}: errors "
+             f"{ {k: line[k] for k in errors} }, timed out "
+             f"{line.get('stages_timed_out')}, quick rc {quick['rc']}")
+    say(f"north star --quick: rc 0, {quick['wall_s']:.1f} s, value "
+        f"{quick['line'].get('value')}, vs_baseline "
+        f"{quick['line'].get('vs_baseline')}")
+    return r["launches"], (
+        f"north star (phase 29): value {line['value']} commits/s, "
+        f"vs_baseline {line['vs_baseline']}, cpp "
+        f"{line['baseline_cpp_commits_per_sec']}, abort_rate "
+        f"{line['abort_rate']}, {r['wall_s']:.1f} s, stage seconds "
+        f"{json.dumps(r['stages'])} ({card})")
+
+
 def main() -> None:
     try:
         import torch
@@ -4078,7 +4289,7 @@ def main() -> None:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    t_start = _LAP[0] = time.perf_counter()
 
     # 2. build
     say(f"kernel build: {K.build():.3f} s ({len(K.KERNELS)} sources, "
@@ -4091,6 +4302,7 @@ def main() -> None:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     say("kernels: all equal to their plain versions (tolerance 0)")
+    lap("1-3")
 
     def count_run(fn):
         K.reset_launches()
@@ -4285,6 +4497,7 @@ def main() -> None:
                 or got["hist_check"] == 0:
             fail(f"wire path {path} did not take its branch: {r}, {got}")
     say(f"wire txns/s: {json.dumps(rates)}")
+    lap("4-9")
 
     # 10. the commit path end to end, cuda then cpp.  The earlier phases'
     # batches, replies and backends go first: a full collection of their
@@ -4339,32 +4552,54 @@ def main() -> None:
             set(ctr["codes"]) - {1007, 1020}:
         fail("the counters' sum differs from the acknowledged commits "
              "(a lost update), or a commit's outcome was unknown")
+    lap("10")
 
     # 11. the multi-resolver; 12. durable storage; 13. the device-plane
     # A/Bs.  prefix_search's error adds the path's own calls (12, 13)
     gots11 = multi_resolver_phase(dev)
+    lap("11")
     durable = durable_phase(dev)
     got12 = {k: sum(d["launches"][k] for d in durable.values())
              for k in K.KERNELS}
+    lap("12")
     err13, gots13 = device_plane_phase(dev)
+    lap("13")
     report["prefix_search"]["max_abs_err"] = max(
         report["prefix_search"]["max_abs_err"], err13,
         *(d["plain_err"] for d in durable.values()))
 
-    # 14. YCSB-F; 15. TPC-C NewOrder; 16. the abort-parity gate; 17. the
-    # probe
-    gots14 = bench_phase("ycsb", dev, count_run)
-    gots15 = bench_phase("tpcc", dev, count_run)
+    # 16. the abort-parity gate; 17. the probe
     set_trace_log(TraceLog())
     trace_dir.cleanup()
     got16 = parity_phase(dev, count_run)
+    lap("16")
     probe_phase()
+    lap("17")
 
-    # 18. the multi-role cluster through two recoveries; 19. three server
-    # processes over TCP.  The trace events of phase 18's roles and of
-    # phase 19's client go to a temporary file
+    # 29. the north star in full as its own process, this process's
+    # tensors released first.  Its device stages run alone; its host
+    # stages (after its device-plane stage) are host-bound, and --quick
+    # and phases 14, 15 and 18-25 run beside them: the smoke as a whole
+    # does not fit its time limit in sequence.  The north star ends
+    # before phase 26, whose farm takes every host core
+    gc.collect()
+    torch.cuda.empty_cache()
+    ns_tmp = tempfile.TemporaryDirectory()
+    ns = north_star_start(ns_tmp.name)
+    reached = north_star_wait(ns, "[bench] stage device_plane:")
+    lap(f"29 (the north star to its host stages: {reached})")
+    q29 = north_star_run(ns_tmp.name, ("--quick",), timeout=300)
+    lap("29 --quick")
+
+    # 14. YCSB-F; 15. TPC-C NewOrder; 18. the multi-role cluster through
+    # two recoveries; 19. three server processes over TCP.  Their roles'
+    # trace events and phase 19's client's go to a temporary file
     trace_dir = tempfile.TemporaryDirectory()
     set_trace_log(TraceLog(path=os.path.join(trace_dir.name, "sim.jsonl")))
+    gots14 = bench_phase("ycsb", dev, count_run)
+    lap("14")
+    gots15 = bench_phase("tpcc", dev, count_run)
+    lap("15")
     t0 = time.perf_counter()
     r18, got18 = count_run(lambda: cluster_phase(dev))
     check_cluster_phase(r18, got18, True)
@@ -4409,13 +4644,22 @@ def main() -> None:
         say(f"phase 24: {time.perf_counter() - t0:.1f} s ({CARD})")
 
         # 25. the operator's deployment: fdbmonitor, fdbcli and the C ABI
-        # against --device cuda servers; 26. the seed farm on the card and
-        # the trace tools over phase 23's seed-0 traces; 27. the resolve
-        # stage of the perf smoke
+        # against --device cuda servers
         t0 = time.perf_counter()
         SUMMARY.append(check_deployment_phase(deployment_phase("cuda"),
                                               CARD))
         say(f"phase 25: {time.perf_counter() - t0:.1f} s ({CARD})")
+        # the north star's end, before phase 26 takes the host
+        t0 = time.perf_counter()
+        r29 = north_star_finish(ns)
+        ns_tmp.cleanup()
+        got29, line29 = check_north_star(r29, q29, CARD)
+        SUMMARY.append(line29)
+        say(f"phase 29: waited {time.perf_counter() - t0:.1f} s for the "
+            f"north star's end ({CARD})")
+
+        # 26. the seed farm on the card and the trace tools over phase
+        # 23's seed-0 traces; 27. the resolve stage of the perf smoke
         t0 = time.perf_counter()
         SUMMARY.append(check_farm_phase(
             farm_phase(tmp), tools_phase(
@@ -4432,7 +4676,7 @@ def main() -> None:
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
                 *gots11, got12, *gots13, *gots14, *gots15, got16, got18,
-                got20, got21, got22, got23, got24, got27):
+                got20, got21, got22, got23, got24, got27, got29):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
@@ -4440,13 +4684,14 @@ def main() -> None:
     # resolver kernels' launches are those of the mako run with
     # RESOLVER_RING_INPLACE (phase 6), the one run that takes all three;
     # prefix_search's are those of the durable read-back (phase 12, every
-    # engine); each phase printed its own counts above, and phases 20-24's
-    # and 27's stand in each row too (phases 25 and 26 launch in their
-    # server and seed processes: the status document's dispatches and
-    # each seed's launches show them).
+    # engine); each phase printed its own counts above, and phases 20-24's,
+    # 27's and 29's (the north star's process and its bench subprocesses)
+    # stand in each row too (phases 25 and 26 launch in their server and
+    # seed processes: the status document's dispatches and each seed's
+    # launches show them).
     counts = dict(got7, prefix_search=got12["prefix_search"])
     by_phase = {"20": got20, "21": got21, "22": got22, "23": got23,
-                "24": got24, "27": got27}
+                "24": got24, "27": got27, "29": got29}
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),

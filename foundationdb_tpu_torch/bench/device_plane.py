@@ -27,11 +27,16 @@ shards of the sharded mirror are separate prefix tensors on it),
 ``torch.device("cpu")`` for the kernels' plain versions.
 ``chip_smoke.py`` phase 13 drives all three on the card and fails on a
 parity flag that is false.
+
+Run: ``python -m foundationdb_tpu_torch.bench.device_plane [--device
+cpu]`` prints the three A/Bs' keys as one JSON line and exits 1 when a
+parity flag is false.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import time
 
 MIRROR_KEYS = 120_000
@@ -51,8 +56,14 @@ def run_mirror(device=None) -> dict:
     from ..runtime.knobs import Knobs
     from ..storage.kv_store import OP_SET, MemoryKVStore
 
+    import torch
+
     dev = default_device(device)
-    out: dict = {"devplane_device": str(dev), "devplane_shards": SHARDS}
+    # the devices visible to the run (the reference's len(jax.devices()));
+    # the shards are prefix tensors on the one device ``dev``
+    out: dict = {"devplane_devices": torch.cuda.device_count()
+                 if dev.type == "cuda" else 1,
+                 "devplane_shards": SHARDS}
 
     def side(shards: int) -> tuple[float, int, "DeviceReadServer"]:
         kv = MemoryKVStore(None, "t")
@@ -105,8 +116,6 @@ def run_mirror(device=None) -> dict:
         "devplane_mirror_sharded_keys_per_sec": round(shard_keys / shard_s, 1),
         "devplane_mirror_shard_refreshes": m["device_read_shard_refreshes"],
         "devplane_mirror_full_splits": m["device_read_full_splits"],
-        "devplane_mirror_twin_uploaded_keys": twin_srv._dir.uploaded_keys,
-        "devplane_mirror_sharded_uploaded_keys": m["device_read_uploaded_keys"],
     })
     return out
 
@@ -208,3 +217,42 @@ def run_ring_inplace(device=None) -> dict:
         # perf claim
         "devplane_ring_mode": dev.type,
     }
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    from .stats import print_launches
+    ap = argparse.ArgumentParser(
+        prog="foundationdb_tpu_torch.bench.device_plane")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the CUDA card (the default) or the CPU (the "
+                    "kernels' plain versions)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        from ..ops import kernels
+        kernels.build_missing()     # no measured loop holds an nvcc run
+
+    out: dict = {}
+    out.update(run_mirror(device))
+    out.update(run_verdict_bitmask(device))
+    out.update(run_ring_inplace(device))
+    rc = 0
+    if not out["devplane_verdict_parity"]:
+        print("FATAL: bitmask verdicts diverge from the raw-vector twin",
+              flush=True)
+        rc = 1
+    if not out["devplane_ring_parity"]:
+        print("FATAL: in-place ring verdicts diverge from the rebuild twin",
+              flush=True)
+        rc = 1
+    print(json.dumps(out))
+    print_launches()
+    return rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

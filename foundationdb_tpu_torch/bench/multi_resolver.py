@@ -10,11 +10,18 @@ plus the ratio to S = 1, and the launches it counted.
 ``_mesh_cluster_run`` measures the routed resolver mesh of the live
 commit path (``Cluster(ClusterConfig(resolvers=K))``).
 
-``chip_smoke.py`` phase 11 drives both on the card.
+``run_live_scaling`` runs that mesh at 1, 2 and 4 resolvers with
+routing on, plus the broadcast twin at 4.  ``chip_smoke.py`` phase 11
+drives the sweep and the mesh on the card.
+
+Run: ``python -m foundationdb_tpu_torch.bench.multi_resolver
+[--device cpu] [--live-only]`` prints one JSON line,
+``{"metric": "multi_resolver_scaling (config 5)", "results": ...}``.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -73,14 +80,13 @@ def run_scaling(batches: int = 40, B: int = 64, R: int = 2,
     for S in shards:
         step, state = scaling_start(S, ebs, versions, width, history_slots,
                                     dev)
-        kernels.reset_launches()
+        before = kernels.launch_counts()
         t0 = time.perf_counter()
         state, _ = drive(step, state, ebs, versions)
         dt = time.perf_counter() - t0
         out[str(S)] = {"txns_per_sec": round(batches * B / dt, 1),
                        "elapsed_s": round(dt, 3),
-                       "launches": {k: v.launches for k, v in
-                                    kernels.KERNELS.items()}}
+                       "launches": kernels.launch_counts(before)}
     base = out.get("1", {}).get("txns_per_sec")
     if base:
         for S, d in out.items():
@@ -244,3 +250,57 @@ async def _mesh_cluster_run(resolvers: int, routing: bool,
         "routing": routing,
         "partitions": partitions,
     }
+
+
+def run_live_scaling(shards=(1, 2, 4), seconds: float = 2.0,
+                     device=None) -> dict:
+    """The live-cluster mesh A/B: aggregate commit txns/s of the real
+    commit path at 1/2/4 resolvers with routing ON, plus the broadcast
+    twin at the widest count — the number the synthetic sharded step
+    above cannot measure (it has no proxy, no version chain and no
+    device pipeline in the loop)."""
+    import asyncio
+
+    out: dict[str, dict] = {}
+    for S in shards:
+        out[str(S)] = asyncio.run(_mesh_cluster_run(S, True, seconds,
+                                                    device=device))
+    widest = max(shards)
+    out[f"{widest}_broadcast"] = asyncio.run(
+        _mesh_cluster_run(widest, False, seconds, device=device))
+    base = out.get("1", {}).get("txns_per_sec")
+    if base:
+        for S, d in out.items():
+            d["speedup_vs_1"] = round(d["txns_per_sec"] / base, 2)
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    from .stats import print_launches
+    ap = argparse.ArgumentParser(
+        prog="foundationdb_tpu_torch.bench.multi_resolver")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the partitions and the resolvers run: the "
+                    "CUDA card (the default) or the CPU (the plain "
+                    "versions)")
+    ap.add_argument("--live-only", action="store_true",
+                    help="skip the synthetic sharded-step sweep")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        from ..ops import kernels
+        kernels.build_missing()     # no measured loop holds an nvcc run
+    results: dict = {} if args.live_only else run_scaling(device=device)
+    results["live_mesh"] = run_live_scaling(device=device)
+    print(json.dumps({"metric": "multi_resolver_scaling (config 5)",
+                      "results": results}))
+    print_launches()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

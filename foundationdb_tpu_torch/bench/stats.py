@@ -22,3 +22,20 @@ def latency_ms(latencies: list[float], pcts: tuple[float, ...]) -> dict:
         for p in pcts:
             out[f"p{p:g}_ms"] = None
     return out
+
+
+# the stderr line on which a bench process reports its hand-kernel
+# launches: a parent that runs it as a subprocess (bench/north_star.py)
+# adds them to its own
+LAUNCHES = "[bench] launches "
+
+
+def print_launches() -> None:
+    """This process's hand-kernel launches, one ``LAUNCHES`` line on
+    stderr."""
+    import json
+    import sys
+
+    from ..ops import kernels
+    print(LAUNCHES + json.dumps(kernels.launch_counts()), file=sys.stderr,
+          flush=True)

@@ -168,9 +168,22 @@ def build(kernels=None) -> float:
     return time.perf_counter() - t0
 
 
+def build_missing() -> float:
+    """Compile the kernels whose library is missing or older than its
+    sources (``build``); the wall seconds, 0 when every one is built."""
+    todo = [k for k in KERNELS.values() if not k.built()]
+    return build(todo) if todo else 0.0
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launch_counts(since: dict | None = None) -> dict:
+    """Each kernel's launches so far, or since the counts ``since``."""
+    since = since or {}
+    return {k: v.launches - since.get(k, 0) for k, v in KERNELS.items()}
 
 
 def _stream() -> int:

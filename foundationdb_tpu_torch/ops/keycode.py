@@ -183,6 +183,11 @@ def encode_prefix_u64(keys: list[bytes]) -> np.ndarray:
     return buf.view(">u8").ravel().astype(np.uint64)
 
 
+def decode_trunc_flag(enc: np.ndarray, width: int = DEFAULT_WIDTH):
+    """True where the encoded key was truncated (len lane == W+1)."""
+    return enc[..., -1] == width + 1
+
+
 def lex_lt(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Strict lexicographic < over the last (lane) axis, broadcasting the rest."""
     L = a.shape[-1]
@@ -201,3 +206,13 @@ def lex_eq(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     for l in range(L):
         eq = eq & (a[..., l] == b[..., l])
     return eq
+
+
+def possibly_lt(a: np.ndarray, b: np.ndarray,
+                width: int = DEFAULT_WIDTH) -> np.ndarray:
+    """True where the *true* byte strings might satisfy a < b.
+
+    Exact (== definite) unless both keys were truncated to the same prefix.
+    """
+    both_trunc = (a[..., -1] == width + 1) & (b[..., -1] == width + 1)
+    return lex_lt(a, b) | (lex_eq(a, b) & both_trunc)

@@ -14,12 +14,20 @@ must beat by ``RESOLVE_AB_FLOOR``.
 
 runs the ``cuda`` backend on the CUDA card (the default; without a card
 it raises) or, with ``--device cpu``, its plain versions on the CPU.
+
+The workload helpers of the ``bigkeys`` and ``compact`` stages
+(``bigkeys_key_fn``, ``apply_bigkeys``, ``packed_scan``,
+``lsm_compact_commits``, ``lsm_ingest_side``) are here too: the north
+star's ``bigkeys`` and ``lsm_ingest`` stages
+(``bench/north_star.py``) measure the same shapes.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import hashlib
+import math
 import time
 
 import torch
@@ -28,6 +36,8 @@ RESOLVE_BATCHES = 96
 RESOLVE_TXNS = 16           # per batch (RESOLVER_BATCH_TXNS for the run)
 RESOLVE_BUDGET_S = 150.0
 RESOLVE_AB_FLOOR = 2.0      # pipelined vs unpipelined txns/s
+COMPACT_KEYS_PER = 40       # ops per commit of the sustained ingest
+COMPACT_PROBE_KEYS = 2048   # byte-identity point probes per twin
 
 
 def resolve_knobs(batch_txns: int = RESOLVE_TXNS):
@@ -220,6 +230,162 @@ def check_resolve(budget_s: float = RESOLVE_BUDGET_S,
         f"{RESOLVE_AB_FLOOR:.0f}x floor vs the unpipelined per-batch "
         f"sync loop — fusion or overlap regressed on the dispatch path")
     return elapsed
+
+
+def bigkeys_key_fn(n_keys: int):
+    """The bigkeys keyspace: a hash-permuted arrival order over n_keys
+    distinct keys.  i -> key must be a BIJECTION, which needs the
+    multiplier coprime to n_keys — the base constant is divisible by 3,
+    so a key count divisible by 3 would silently collapse the keyspace
+    to n/3 distinct keys; bump to the next coprime odd instead (a no-op
+    for the default 2M counts)."""
+    mul = 1_315_423_911
+    while n_keys > 1 and math.gcd(mul, n_keys) != 1:
+        mul += 2
+
+    def key(i: int) -> bytes:
+        return b"big%012d" % ((i * mul) % n_keys)
+
+    return key
+
+
+async def apply_bigkeys(ss, n_keys: int, key, value=b"v%08d"
+                        ) -> tuple[int, float]:
+    """Apply ``n_keys`` fresh keys through real packed commit batches
+    (the TLog-pull apply shape) onto ``ss``; returns (final version,
+    apply seconds)."""
+    from ..core.data import MutationBatchBuilder
+    t0 = time.perf_counter()
+    version = 0
+    for start in range(0, n_keys, 4096):
+        version += 1
+        mb = MutationBatchBuilder()
+        for i in range(start, min(start + 4096, n_keys)):
+            mb.add(0, key(i), value % i)
+        ss._apply_batch([(version, mb.finish())])
+        if (start // 4096) % 16 == 0:
+            await asyncio.sleep(0)
+    return version, time.perf_counter() - t0
+
+
+async def packed_scan(ss, begin: bytes, end: bytes, version: int,
+                      chunk: int = 4096) -> list:
+    """Full packed chunked-continuation scan of [begin, end) — the
+    client continuation discipline at the storage boundary."""
+    from ..core.data import GetRangeRequest
+    rows: list = []
+    b = begin
+    while True:
+        rep = await ss.get_key_values_packed(
+            GetRangeRequest(b, end, version, chunk))
+        assert rep.status == 0, rep.status
+        rows.extend(rep.rows())
+        if not rep.more or not len(rep):
+            break
+        b = rows[-1][0] + b"\x00"
+    return rows
+
+
+def _lsm_compact_geometry(lsm_mod):
+    """Small lsm geometry for the compaction A/B: small enough that
+    dozens of flushes and many compaction cycles run in seconds, large
+    enough that a monolithic merge-all visibly rewrites the keyspace.
+    Returns the saved constants for restore."""
+    saved = (lsm_mod._MEMTABLE_BYTES, lsm_mod._BLOCK_BYTES,
+             lsm_mod._MAX_RUNS)
+    lsm_mod._MEMTABLE_BYTES = 24 << 10
+    lsm_mod._BLOCK_BYTES = 4 << 10
+    lsm_mod._MAX_RUNS = 4
+    return saved
+
+
+async def lsm_ingest_side(leveled: bool, commits: list,
+                          probes: list[bytes],
+                          probe_every: int = 0) -> dict:
+    """One side of the compaction A/B: ingest the prepared commit
+    batches into a fresh lsm store (leveled background compaction vs
+    the monolithic inline twin), drain, snapshot the serving surface.
+    ``probe_every`` > 0 interleaves a timed get_batch every N commits —
+    the read-latency-DURING-compaction sample."""
+    from ..runtime.files import SimFileSystem
+    from ..runtime.knobs import Knobs
+    from ..storage.lsm import LSMKVStore
+
+    knobs = Knobs().override(LSM_LEVELED_COMPACTION=leveled,
+                             LSM_COMPACT_SLICE_BYTES=32 << 10,
+                             LSM_LEVEL_FANOUT=8)
+    fs = SimFileSystem()
+    kv = await LSMKVStore.open(fs, "db/lsm", knobs=knobs)
+    commit_s: list[float] = []
+    probe_s: list[float] = []
+    t_all = time.perf_counter()
+    for i, batch in enumerate(commits):
+        t0 = time.perf_counter()
+        await kv.commit(batch, {"durable_version": i + 1})
+        commit_s.append(time.perf_counter() - t0)
+        if probe_every and i % probe_every == probe_every - 1:
+            t0 = time.perf_counter()
+            kv.get_batch(probes)
+            probe_s.append(time.perf_counter() - t0)
+    if leveled:
+        await kv.wait_compaction_idle()
+    ingest_wall = time.perf_counter() - t_all
+    got = kv.get_batch(probes)
+    rows_sha = hashlib.sha256()
+    n_rows = 0
+    for run in kv.range_runs(b"", b"\xff\xff"):
+        for k, v in run:
+            rows_sha.update(bytes(k))
+            rows_sha.update(bytes(v))
+            n_rows += 1
+    m = kv.metrics()
+    await kv.close()
+    commit_s.sort()
+    p99 = commit_s[int(len(commit_s) * 0.99)] if commit_s else 0.0
+    probe_s.sort()
+    return {
+        "ingest_wall_s": ingest_wall,
+        "commit_p99_ms": round(p99 * 1e3, 3),
+        "commit_max_ms": round(commit_s[-1] * 1e3, 3) if commit_s else 0,
+        "read_p99_ms": (round(probe_s[int(len(probe_s) * 0.99)] * 1e3, 3)
+                        if probe_s else None),
+        "write_amp": m["lsm_write_amp"],
+        "compactions": m["lsm_compactions"],
+        "runs": m["lsm_runs"],
+        "levels": m["lsm_levels"],
+        "stall_max_ms": m["lsm_compact_stall_ms"],
+        "got": got,
+        "rows_sha": rows_sha.hexdigest(),
+        "n_rows": n_rows,
+    }
+
+
+def lsm_compact_commits(n_commits: int, keys_per: int,
+                        keyspace: int) -> tuple[list, list[bytes]]:
+    """The seeded sustained-ingest op stream both twins replay: uniform
+    random writes over a keyspace large enough that the live dataset
+    GROWS through the run — every flush run spans the keyspace (the
+    overlap-heavy shape) and each monolithic merge-all rewrites the
+    ever-larger whole — plus a trickle of narrow range clears
+    (tombstones crossing levels), and the sorted probe list."""
+    import random
+    rng = random.Random(20240814)
+    commits = []
+    for _ in range(n_commits):
+        batch = []
+        for _ in range(keys_per):
+            if rng.random() < 0.02:
+                lo = rng.randrange(keyspace)
+                hi = min(keyspace, lo + rng.randrange(1, 4))
+                batch.append((1, b"ck%08d" % lo, b"ck%08d" % hi))
+            else:
+                batch.append((0, b"ck%08d" % rng.randrange(keyspace),
+                              bytes([rng.randrange(256)])
+                              * rng.randrange(16, 72)))
+        commits.append(batch)
+    probes = sorted({b"ck%08d" % rng.randrange(keyspace)
+                     for _ in range(COMPACT_PROBE_KEYS)})
+    return commits, probes
 
 
 def main(argv=None) -> int:

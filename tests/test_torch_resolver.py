@@ -151,7 +151,7 @@ ENTRY_POINTS = [os.path.join(ROOT, "foundationdb_tpu_torch", p) for p in (
     "cli.py", "monitor.py", "capi_host.py", "server.py",
     "bindings/python/fdbtpu.py", "bindings/bindingtester/stack_tester.py",
     "tools/seed_farm.py", "tools/trace_tool.py", "tools/metrics_tool.py",
-    "tools/perf_smoke.py")]
+    "tools/perf_smoke.py", "bench/north_star.py")]
 
 
 def _port_sources():
@@ -162,12 +162,29 @@ def _port_sources():
     return sorted(out)
 
 
+def _tools_on_sys_path(node: ast.AST) -> bool:
+    """A ``sys.path.insert``/``append`` whose argument names ``tools``."""
+    f = getattr(node, "func", None)
+    return (isinstance(node, ast.Call) and isinstance(f, ast.Attribute)
+            and f.attr in ("insert", "append")
+            and ast.unparse(f.value) == "sys.path"
+            and any(isinstance(c, ast.Constant) and isinstance(c.value, str)
+                    and c.value.rstrip("/").endswith("tools")
+                    for a in node.args for c in ast.walk(a)))
+
+
 def test_port_imports_nothing_of_jax_or_the_reference():
-    banned = ("jax", "jaxlib", "foundationdb_tpu")
+    # the JAX package, JAX, and the repo-root modules of the reference's
+    # benchmark: bench.py and the scripts under tools/
+    banned = ("jax", "jaxlib", "foundationdb_tpu", "bench", "perf_smoke",
+              "trace_tool", "metrics_tool", "seed_farm")
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
+            if _tools_on_sys_path(node):
+                bad.append(f"{os.path.relpath(path, ROOT)}: "
+                           f"{ast.unparse(node)}")
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:

@@ -434,21 +434,33 @@ def _recording(fn, label: str, log: list):
     return functools.wraps(fn)(wrapper)
 
 
-def record(mp, name: str, log: list) -> list:
+def _owner(name: str, path: str):
+    """Package ``name``'s module ``path``, or the class ``path`` names
+    (``module.Class``)."""
+    try:
+        return importlib.import_module(f"{name}.{path}")
+    except ModuleNotFoundError:
+        mod, cls_name = path.rsplit(".", 1)
+        return getattr(importlib.import_module(f"{name}.{mod}"), cls_name)
+
+
+def record(mp, name: str, log: list, recorded: dict | None = None) -> list:
     """Patch package ``name`` (through ``mp``, a pytest MonkeyPatch) so
-    that what its scenarios show goes into ``log``; returns the list
+    that what its scenarios show goes into ``log``: ``RECORDED``'s
+    methods, and ``recorded``'s (``{"module.Class" or "module": names}``,
+    a module's functions called through the module); returns the list
     that collects every ``SimFileSystem`` the scenario makes.  A
     ``RESULTS`` function is replaced wherever a module of the package
     bound it by name."""
-    for path, names in RECORDED.items():
-        mod, cls_name = path.rsplit(".", 1)
-        cls = getattr(importlib.import_module(f"{name}.{mod}"), cls_name)
+    for path, names in {**RECORDED, **(recorded or {})}.items():
+        owner = _owner(name, path)
+        label = path.rsplit(".", 1)[1]
         if names is None:
-            names = [n for n, v in vars(cls).items()
+            names = [n for n, v in vars(owner).items()
                      if inspect.isfunction(v) and not n.startswith("_")]
         for n in names:
-            mp.setattr(cls, n, _recording(getattr(cls, n),
-                                          f"{cls_name}.{n}", log))
+            mp.setattr(owner, n, _recording(getattr(owner, n),
+                                            f"{label}.{n}", log))
     # every module first, so that none binds a wrapper by importing it
     mods = {p: importlib.import_module(f"{name}.{p}") for p in RESULTS}
     for path, names in RESULTS.items():
@@ -472,16 +484,17 @@ def record(mp, name: str, log: list) -> list:
 
 
 def patch_port(mp, device=None, retire: bool = True) -> None:
-    """The port's clusters, simulated and in-process, on ``device`` (the
-    CPU by default, where their resolvers' and read mirrors' plain
-    versions answer) unless a scenario names one.  With ``retire``
+    """The port's clusters, simulated and in-process, and its resolvers
+    on ``device`` (the CPU by default, where the resolvers' and read
+    mirrors' plain versions answer) unless a scenario names one.  With ``retire``
     false, the port's controller does not stop an ended generation's
     resolvers after a recovery (which the reference never does): the
     retire RPC draws from the simulated network, so without it a
     scenario with recoveries runs event for event as the reference's."""
     import torch
     device = device or torch.device("cpu")
-    for path in ("core.cluster.Cluster", "sim.cluster_sim.SimulatedCluster"):
+    for path in ("core.cluster.Cluster", "sim.cluster_sim.SimulatedCluster",
+                 "core.resolver.Resolver"):
         mod, cls_name = path.rsplit(".", 1)
         cls = getattr(importlib.import_module(f"{PORT}.{mod}"), cls_name)
 
@@ -529,19 +542,21 @@ def fresh_run(name: str) -> None:
 
 def run_reference_test(file: str, test: str, name: str, mp,
                        device=None, retire: bool = True,
-                       args=None, edits: tuple = ()) -> dict:
+                       args=None, edits: tuple = (),
+                       recorded: dict | None = None) -> dict:
     """Run the reference's ``file::test`` (with the parameters
     ``args``: a dict, or a function of the scenario's module that
     returns one; its source changed by ``edits`` as ``reference_module``
     changes it) against package ``name`` with its own assertions, from
     fresh process state (``fresh_run``); return what it
-    showed: the transcript, each simulated disk's bytes, and the
+    showed: the transcript (with ``recorded``'s calls, as ``record``
+    takes them), each simulated disk's bytes, and the
     LayerMismatch events it traced.  The port runs as
     ``patch_port(device, retire)`` sets it."""
     fresh_run(name)
     log: list = []
     with mp.context() as m:
-        disks = record(m, name, log)
+        disks = record(m, name, log, recorded)
         if name == PORT:
             patch_port(m, device, retire)
         # the scenario's module binds the recorded functions by name
@@ -565,6 +580,31 @@ def reference_cases(cases: dict) -> list:
             for f, tests in cases.items() for t in tests]
 
 
+def reference_param_cases(cases: dict) -> list:
+    """``{file: [test, ...]}`` as pytest parameters ``(file, test,
+    args)``: one for each case of a test's own ``parametrize`` marks
+    (``args`` its keyword arguments), one with ``args`` empty for a test
+    without them."""
+    out = []
+    for f, tests in cases.items():
+        mod = reference_module(f, REF)
+        for t in tests:
+            combos = [{}]
+            for m in getattr(getattr(mod, t), "pytestmark", []):
+                if m.name != "parametrize":
+                    continue
+                names = [n.strip() for n in m.args[0].split(",")]
+                combos = [{**kw, **dict(zip(names, v if len(names) > 1
+                                            else (v,)))}
+                          for kw in combos for v in m.args[1]]
+            for kw in combos:
+                ident = "-".join(str(v) for v in kw.values())
+                out.append(pytest.param(
+                    f, t, kw, id=f"{f[5:-3]}::{t[5:]}"
+                    + (f"[{ident}]" if ident else "")))
+    return out
+
+
 def assert_same(ref: dict, port: dict) -> None:
     """Two ``run_reference_test`` results equal, naming the first
     divergent event or file when they are not."""
@@ -580,7 +620,8 @@ def assert_same(ref: dict, port: dict) -> None:
 
 def hold_to_reference(file: str, test: str, mp, args=None,
                       recovers: bool = False, port_args=None,
-                      port_edits: tuple = ()) -> dict:
+                      port_edits: tuple = (),
+                      recorded: dict | None = None) -> dict:
     """The reference's ``file::test`` run on both packages, each with its
     own assertions, and what they showed held equal (``assert_same``);
     returns the reference's.  ``port_args`` are the port's parameters
@@ -588,14 +629,17 @@ def hold_to_reference(file: str, test: str, mp, args=None,
     changes to the scenario's source for the port (``reference_module``).
     A scenario that ``recovers`` runs the port twice: as it is, with the
     assertions, and without the resolver retire (see ``patch_port``) for
-    the comparison."""
-    ref = run_reference_test(file, test, REF, mp, args=args)
+    the comparison.  ``recorded`` adds calls to both transcripts
+    (``record``)."""
+    ref = run_reference_test(file, test, REF, mp, args=args,
+                             recorded=recorded)
     port_args = args if port_args is None else port_args
     if recovers:
         run_reference_test(file, test, PORT, mp, args=port_args,
-                           edits=port_edits)
+                           edits=port_edits, recorded=recorded)
     port = run_reference_test(file, test, PORT, mp, args=port_args,
-                              retire=not recovers, edits=port_edits)
+                              retire=not recovers, edits=port_edits,
+                              recorded=recorded)
     assert_same(ref, port)
     return ref
 
