@@ -50,11 +50,65 @@ VERDICT_TXNS = 64
 RING_BATCHES = 24
 
 
-def run_mirror(device=None) -> dict:
+def mirror_side(shards: int, dev, n_keys: int = MIRROR_KEYS,
+                rounds: int = ROUNDS, churn_keys: int = CHURN_KEYS,
+                probes: int = PROBES,
+                per_round: int = BATCHES_PER_ROUND
+                ) -> tuple[float, int, "DeviceReadServer"]:
+    """One side of the mirror A/B on ``dev``: a memory engine of
+    ``n_keys`` keys behind a mirror of ``shards`` shards (0: one
+    directory), ``rounds`` churn rounds of ``churn_keys`` tail inserts,
+    each followed by ``per_round`` batches of up to ``probes`` keys, every
+    answer held equal to ``engine.get_batch``.  Returns (seconds, keys
+    probed, the server)."""
     from ..device.read_serve import DeviceReadServer
-    from ..ops.conflict_torch import default_device
     from ..runtime.knobs import Knobs
     from ..storage.kv_store import OP_SET, MemoryKVStore
+
+    kv = MemoryKVStore(None, "t")
+    kv._apply([(OP_SET, b"mk%07d" % i, b"v%07d" % i)
+               for i in range(n_keys)])
+    kv.packed_index._merge()
+    knobs = Knobs().override(STORAGE_DEVICE_READ_MIN_BATCH=4,
+                             STORAGE_DEVICE_READ_SHARDS=shards)
+    srv = DeviceReadServer(kv, knobs, device=dev)
+    if not srv.active:
+        raise RuntimeError("the device read mirror is not armed")
+    probe_sets = [
+        sorted({b"mk%07d" % ((r * 104729 + j * 31 + s * 7919)
+                             % (n_keys + 500))
+                for j in range(probes)})
+        for r in range(rounds) for s in range(per_round)]
+    # warmup: prime the mirror and its split
+    warm = probe_sets[0]
+    if srv.get_batch(warm) is None:
+        srv.get_batch(warm)
+    srv.served_batches = 0
+    srv.fallbacks = 0
+    keys_served = 0
+    t0 = time.perf_counter()
+    pi = 0
+    for r in range(rounds):
+        # tail-localized churn: every churn key sorts past mk*, so only
+        # the last shard's key range is touched
+        kv._apply([(OP_SET, b"zz%07d" % (r * churn_keys + j), b"c")
+                   for j in range(churn_keys)])
+        kv.packed_index._merge()
+        for _ in range(per_round):
+            keys = probe_sets[pi]
+            pi += 1
+            got = srv.get_batch(keys)
+            if got is None:                 # engine fallback
+                got = kv.get_batch(keys)
+            keys_served += len(keys)
+            if got != kv.get_batch(keys):
+                raise RuntimeError(
+                    "device read path diverged from the engine")
+    return time.perf_counter() - t0, keys_served, srv
+
+
+def run_mirror(device=None) -> dict:
+    from ..ops.conflict_torch import default_device
 
     import torch
 
@@ -64,48 +118,8 @@ def run_mirror(device=None) -> dict:
     out: dict = {"devplane_devices": torch.cuda.device_count()
                  if dev.type == "cuda" else 1,
                  "devplane_shards": SHARDS}
-
-    def side(shards: int) -> tuple[float, int, "DeviceReadServer"]:
-        kv = MemoryKVStore(None, "t")
-        kv._apply([(OP_SET, b"mk%07d" % i, b"v%07d" % i)
-                   for i in range(MIRROR_KEYS)])
-        kv.packed_index._merge()
-        knobs = Knobs().override(STORAGE_DEVICE_READ_MIN_BATCH=4,
-                                 STORAGE_DEVICE_READ_SHARDS=shards)
-        srv = DeviceReadServer(kv, knobs, device=dev)
-        if not srv.active:
-            raise RuntimeError("the device read mirror is not armed")
-        probe_sets = [
-            sorted({b"mk%07d" % ((r * 104729 + j * 31 + s * 7919)
-                                 % (MIRROR_KEYS + 500))
-                    for j in range(PROBES)})
-            for r in range(ROUNDS) for s in range(BATCHES_PER_ROUND)]
-        warm = probe_sets[0]
-        if srv.get_batch(warm) is None:
-            srv.get_batch(warm)
-        srv.served_batches = 0
-        srv.fallbacks = 0
-        keys_served = 0
-        t0 = time.perf_counter()
-        pi = 0
-        for r in range(ROUNDS):
-            kv._apply([(OP_SET, b"zz%07d" % (r * CHURN_KEYS + j), b"c")
-                       for j in range(CHURN_KEYS)])
-            kv.packed_index._merge()
-            for _ in range(BATCHES_PER_ROUND):
-                keys = probe_sets[pi]
-                pi += 1
-                got = srv.get_batch(keys)
-                if got is None:
-                    got = kv.get_batch(keys)
-                keys_served += len(keys)
-                if got != kv.get_batch(keys):
-                    raise RuntimeError(
-                        "device read path diverged from the engine")
-        return time.perf_counter() - t0, keys_served, srv
-
-    twin_s, twin_keys, twin_srv = side(0)
-    shard_s, shard_keys, shard_srv = side(SHARDS)
+    twin_s, twin_keys, twin_srv = mirror_side(0, dev)
+    shard_s, shard_keys, shard_srv = mirror_side(SHARDS, dev)
     m = shard_srv.metrics()
     out.update({
         "devplane_mirror_twin_batches": twin_srv.served_batches,
@@ -120,14 +134,14 @@ def run_mirror(device=None) -> dict:
     return out
 
 
-def _proxy_batches(n_batches: int):
+def _proxy_batches(n_batches: int, n_txns: int = VERDICT_TXNS):
     from ..ops.batch import TxnRequest
 
     batches, versions = [], []
     v, key = 1_000, 0
     for i in range(n_batches):
         txns = []
-        for j in range(VERDICT_TXNS):
+        for j in range(n_txns):
             if i % 12 == 11 and j < 2:
                 # cross-batch collision at a stale snapshot -> CONFLICT,
                 # so the packed planes carry real set bits
@@ -165,12 +179,12 @@ def _pipeline_pass(knobs, batches, versions,
     return asyncio.run(run())
 
 
-def _base_knobs():
+def _base_knobs(n_txns: int = VERDICT_TXNS):
     from ..runtime.knobs import Knobs
 
     return Knobs().override(
         RESOLVER_CONFLICT_BACKEND="cuda",
-        RESOLVER_BATCH_TXNS=VERDICT_TXNS,
+        RESOLVER_BATCH_TXNS=n_txns,
         RESOLVER_RANGES_PER_TXN=2, CONFLICT_RING_CAPACITY=4096,
         KEY_ENCODE_BYTES=16, CONFLICT_WINDOW_SLOTS=64,
         MAX_WRITE_TRANSACTION_LIFE_VERSIONS=1_000, RESOLVER_GROUP_MAX=8)

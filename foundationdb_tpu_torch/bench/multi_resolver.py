@@ -131,7 +131,7 @@ def profile_scaling(S: int, batches: int = 64, B: int = 64, R: int = 2,
 async def _mesh_cluster_run(resolvers: int, routing: bool,
                             seconds: float = 2.5, warmup_s: float = 1.0,
                             n_clients: int = 96, seed: int = 13,
-                            device=None) -> dict:
+                            device=None, skewed: bool = False) -> dict:
     """One live-cluster mesh measurement: the REAL recruited commit path
     (proxy → routed/broadcast resolver mesh → TLog → storage) under a
     range-partitioned workload — every txn's keys live in one partition
@@ -139,8 +139,9 @@ async def _mesh_cluster_run(resolvers: int, routing: bool,
     partitions header-only version advances.  Returns aggregate commit
     txns/s plus the routing stats (header-only
     fraction per partition, fused group mean, device overlap).
-    The resolvers run the ``cuda`` backend on ``device`` (the card by
-    default)."""
+    ``skewed`` puts every key in the bottom partition's range (the
+    perf smoke's mesh stage).  The resolvers run the ``cuda`` backend on
+    ``device`` (the card by default)."""
     import asyncio
     import random
     import time
@@ -193,7 +194,14 @@ async def _mesh_cluster_run(resolvers: int, routing: bool,
             # batch's txns land in ONE partition — the other partitions
             # see header-only version advances.  This is the bulk-load /
             # region-at-a-time shape routed meshes are built for.
-            band = (int(time.perf_counter() * 200) * 7) % 240
+            if skewed:
+                # partition-SKEWED shape: every key lands in the bottom
+                # partition's range, so the other partitions receive
+                # nothing but header-only version advances — the
+                # empty-clip fast path's best case
+                band = 0x10 + (int(time.perf_counter() * 200) * 7) % 0x60
+            else:
+                band = (int(time.perf_counter() * 200) * 7) % 240
             base = rng.randrange(50_000)
             try:
                 for j in range(3):

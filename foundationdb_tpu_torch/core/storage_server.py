@@ -884,6 +884,10 @@ class StorageServer:
                 self.logical_bytes += mutations.set_payload_bytes()
                 self.heat.record_write_batch(mutations)
                 self.vmap.apply_packed(version, mutations)
+                if durable and b"\x01" in mutations.types:
+                    self._mask_engine_rows(version, [
+                        (m.param1, m.param2) for m in mutations
+                        if m.type == MutationType.CLEAR_RANGE])
                 if durable:
                     self._dbuf.extend_packed(version, mutations)
                 if self.feeds.feeds:
@@ -942,6 +946,9 @@ class StorageServer:
                 elif m.type == MutationType.CLEAR_RANGE:
                     vops.append((version, OP_CLEAR, m.param1, m.param2))
                     if durable:
+                        flush()
+                        self._mask_engine_rows(version,
+                                               [(m.param1, m.param2)])
                         self._dbuf.append(version, OP_CLEAR, m.param1,
                                           m.param2)
                     if fb is not None:
@@ -994,6 +1001,23 @@ class StorageServer:
                 .detail("DurationMs",
                         round((get_trace_log().clock() - tt0) * 1e3, 3)) \
                 .log()
+
+    def _mask_engine_rows(self, version: Version,
+                          ranges: list[tuple[bytes, bytes]]) -> None:
+        """Tombstone, in the MVCC window at ``version``, every engine row
+        in ``ranges`` that the window does not resolve at ``version``.
+        Called right after the version's clears reached the window.  The
+        window tombstones only keys it holds, and the engine keeps a
+        cleared row until the clear itself is durable.  Without this, a
+        read at or after the clear would serve that row (a key cold for
+        longer than one window, or one the durability floor dropped from
+        it).  A later set of the key in the same version is found and
+        left alone."""
+        vmap = self.vmap
+        for b, e in ranges:
+            for key, _ in self.engine.range(b, e):
+                if not vmap.get2(key, version)[0]:
+                    vmap.set(version, key, None)
 
     def _bump_version(self, version: Version) -> None:
         if version <= self.version:

@@ -468,7 +468,8 @@ class _Readback:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self.host.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            # the stream named by device: see kernels._stream
+            self.event.record(torch.cuda.current_stream(t.device))
         else:
             self.host = t
             self.event = None
@@ -616,7 +617,7 @@ class StagingRing:
         out = self._bufs[owner][:arr.size].to(device, non_blocking=True)
         assert out.data_ptr() % 8 == 0
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(out.device))
         self._events[owner] = ev
         return out
 

@@ -186,8 +186,11 @@ def launch_counts(since: dict | None = None) -> dict:
     return {k: v.launches - since.get(k, 0) for k, v in KERNELS.items()}
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device.  Named by the tensor's
+    device: asked with no device, torch resolves the current one with a
+    device-count query on every call."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int) -> None:
@@ -452,7 +455,7 @@ def _commit_chain_args(rb, re, wb, we, hit, snap, floor, width, points,
             mapped(width), mapped(width + 1), SENTINEL_MAPPED, int(points),
             verdicts.data_ptr(), committed.data_ptr(), _ptr(slab_b),
             _ptr(slab_e), 0 if slab_b is None else slab_b.stride(0),
-            _ptr(slab_v), version, _ptr(version_t), _stream()]
+            _ptr(slab_v), version, _ptr(version_t), _stream(rb)]
 
 
 # --------------------------------------------------------------------------
@@ -493,7 +496,7 @@ def ring_append(buf: torch.Tensor, slab: torch.Tensor,
         raise ValueError(f"ring_append: unsupported device {dev}")
     KERNELS["ring_append"].launch(buf.data_ptr(), slab.data_ptr(),
                                   out.data_ptr(), L, C, S, slab.stride(0),
-                                  _stream())
+                                  _stream(buf))
     return out
 
 
@@ -650,7 +653,7 @@ def _hist_check_args(rb, re, snap, width, points, hit, full, window, edge,
                          hver.data_ptr(), hver.shape[0])
     return [rb.data_ptr(), re.data_ptr(), snap.data_ptr(), B, R, L,
             mapped(width), mapped(width + 1), SENTINEL_MAPPED, int(points),
-            arr, _ptr(edge), _ptr(floor), hit.data_ptr(), _stream()]
+            arr, _ptr(edge), _ptr(floor), hit.data_ptr(), _stream(rb)]
 
 
 # --------------------------------------------------------------------------
@@ -697,7 +700,7 @@ def prefix_search(pfx: torch.Tensor, probes: torch.Tensor,
     if n:
         KERNELS["prefix_search"].launch(
             pfx.data_ptr(), pfx.shape[0], probes.data_ptr(), n,
-            lo.data_ptr(), hi.data_ptr(), _stream())
+            lo.data_ptr(), hi.data_ptr(), _stream(pfx))
     return lo, hi
 
 

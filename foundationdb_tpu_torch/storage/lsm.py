@@ -637,7 +637,6 @@ class LSMKVStore:
         out: list[bytes | None] = [None] * len(keys)
         mem = self._mem
         runs = self._runs
-        bkeys_cache: dict[tuple[int, int], list[bytes]] = {}
         for i, k in enumerate(keys):
             if k in mem:
                 out[i] = mem[k]
@@ -647,14 +646,11 @@ class LSMKVStore:
                 b = int(row[r_i])
                 if b < 0:
                     continue
-                ck = (r_i, b)
-                bkeys = bkeys_cache.get(ck)
+                # bisect the block's rows by key: a probe converts
+                # log2(rows) keys, not the whole block's
                 blk = runs[r_i]._block(b)
-                if bkeys is None:
-                    bkeys = [bytes(e[0]) for e in blk]
-                    bkeys_cache[ck] = bkeys
-                j = bisect.bisect_left(bkeys, k)
-                if j < len(bkeys) and bkeys[j] == k:
+                j = bisect.bisect_left(blk, k, key=_row_key)
+                if j < len(blk) and bytes(blk[j][0]) == k:
                     v = blk[j][1]
                     out[i] = bytes(v) if v is not None else None
                     break
@@ -1386,6 +1382,11 @@ def _merge_pair_rows(newer: list, older: list) -> list:
     keys, src = ka.merge_newest_wins(kb)
     vals = [r[1] for r in older] + [r[1] for r in newer]
     return [(k, vals[s]) for k, s in zip(keys, src.tolist())]
+
+
+def _row_key(row) -> bytes:
+    """A block row's key as bytes (rows may hold memoryviews)."""
+    return bytes(row[0])
 
 
 def _merge(sources, reverse: bool, keep_tombstones: bool = False):

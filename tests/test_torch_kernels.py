@@ -355,7 +355,7 @@ def test_group_launches_move_pointers_like_fresh_views(monkeypatch):
     resolve_many_core's layout.  The wrappers are made to take the CPU
     tensors for card tensors, and the launches are recorded, not run."""
     monkeypatch.setattr(K, "_same_device", lambda *ts: torch.device("cuda"))
-    monkeypatch.setattr(K, "_stream", lambda: 7)
+    monkeypatch.setattr(K, "_stream", lambda t: 7)
     calls = []
     monkeypatch.setattr(K.Kernel, "launch",
                         lambda self, *a: calls.append((self.name, a)))

@@ -483,9 +483,10 @@ def record(mp, name: str, log: list, recorded: dict | None = None) -> list:
     return disks
 
 
-def patch_port(mp, device=None, retire: bool = True) -> None:
+def patch_port(mp, device=None, retire: bool = True,
+               mask: bool = True) -> None:
     """The port's clusters, simulated and in-process, and its resolvers
-    on ``device`` (the CPU by default, where the resolvers' and read
+    and storage servers on ``device`` (the CPU by default, where the resolvers' and read
     mirrors' plain versions answer) unless a scenario names one.  With ``retire``
     false, the port's controller does not stop an ended generation's
     resolvers after a recovery (which the reference never does): the
@@ -494,7 +495,8 @@ def patch_port(mp, device=None, retire: bool = True) -> None:
     import torch
     device = device or torch.device("cpu")
     for path in ("core.cluster.Cluster", "sim.cluster_sim.SimulatedCluster",
-                 "core.resolver.Resolver"):
+                 "core.resolver.Resolver",
+                 "core.storage_server.StorageServer"):
         mod, cls_name = path.rsplit(".", 1)
         cls = getattr(importlib.import_module(f"{PORT}.{mod}"), cls_name)
 
@@ -509,6 +511,18 @@ def patch_port(mp, device=None, retire: bool = True) -> None:
         async def keep(self, prev_state):
             return None
         mp.setattr(cc.ClusterController, "_retire_resolvers", keep)
+    if not mask:
+        unmasked(mp)
+
+
+def unmasked(mp) -> None:
+    """The port's storage servers without their repair of the
+    reference's stale read after a clear (ROADMAP C): a clear
+    tombstones only the window's keys, and an engine row it covers is
+    served until the clear is durable, as in the reference."""
+    ss = importlib.import_module(f"{PORT}.core.storage_server")
+    mp.setattr(ss.StorageServer, "_mask_engine_rows",
+               lambda self, version, ranges: None)
 
 
 @contextlib.contextmanager
@@ -543,7 +557,8 @@ def fresh_run(name: str) -> None:
 def run_reference_test(file: str, test: str, name: str, mp,
                        device=None, retire: bool = True,
                        args=None, edits: tuple = (),
-                       recorded: dict | None = None) -> dict:
+                       recorded: dict | None = None,
+                       mask: bool = True) -> dict:
     """Run the reference's ``file::test`` (with the parameters
     ``args``: a dict, or a function of the scenario's module that
     returns one; its source changed by ``edits`` as ``reference_module``
@@ -552,13 +567,13 @@ def run_reference_test(file: str, test: str, name: str, mp,
     showed: the transcript (with ``recorded``'s calls, as ``record``
     takes them), each simulated disk's bytes, and the
     LayerMismatch events it traced.  The port runs as
-    ``patch_port(device, retire)`` sets it."""
+    ``patch_port(device, retire, mask)`` sets it."""
     fresh_run(name)
     log: list = []
     with mp.context() as m:
         disks = record(m, name, log, recorded)
         if name == PORT:
-            patch_port(m, device, retire)
+            patch_port(m, device, retire, mask)
         # the scenario's module binds the recorded functions by name
         mod = reference_module(file, name, edits)
         fn = getattr(mod, test)
@@ -621,7 +636,8 @@ def assert_same(ref: dict, port: dict) -> None:
 def hold_to_reference(file: str, test: str, mp, args=None,
                       recovers: bool = False, port_args=None,
                       port_edits: tuple = (),
-                      recorded: dict | None = None) -> dict:
+                      recorded: dict | None = None,
+                      stale_reads: bool = False) -> dict:
     """The reference's ``file::test`` run on both packages, each with its
     own assertions, and what they showed held equal (``assert_same``);
     returns the reference's.  ``port_args`` are the port's parameters
@@ -629,17 +645,20 @@ def hold_to_reference(file: str, test: str, mp, args=None,
     changes to the scenario's source for the port (``reference_module``).
     A scenario that ``recovers`` runs the port twice: as it is, with the
     assertions, and without the resolver retire (see ``patch_port``) for
-    the comparison.  ``recorded`` adds calls to both transcripts
-    (``record``)."""
+    the comparison.  A scenario that reads a cleared engine row before
+    the clear is durable (``stale_reads``: the reference serves the row,
+    the port repairs that) runs the port twice the same way: as it is,
+    and without the repair (``unmasked``) for the comparison.
+    ``recorded`` adds calls to both transcripts (``record``)."""
     ref = run_reference_test(file, test, REF, mp, args=args,
                              recorded=recorded)
     port_args = args if port_args is None else port_args
-    if recovers:
+    if recovers or stale_reads:
         run_reference_test(file, test, PORT, mp, args=port_args,
                            edits=port_edits, recorded=recorded)
     port = run_reference_test(file, test, PORT, mp, args=port_args,
                               retire=not recovers, edits=port_edits,
-                              recorded=recorded)
+                              recorded=recorded, mask=not stale_reads)
     assert_same(ref, port)
     return ref
 
@@ -671,3 +690,75 @@ def run_workload_specs(name: str, mp, specs: list, seed: int,
             "disks": [{p: bytes(b) for p, b in fs.disks.items()}
                       for fs in disks],
             "mismatches": []}
+
+
+# --------------------------------------------------------------------------
+# the perf smoke of either package
+
+def perf_smoke(name: str):
+    """Package ``name``'s perf smoke: the reference's ``tools/perf_smoke.py``
+    (a script beside the package) or the port's ``tools.perf_smoke``."""
+    if name == PORT:
+        return importlib.import_module(f"{PORT}.tools.perf_smoke")
+    return reference_tool("perf_smoke")
+
+
+def stage_stats(name: str, stage: str, mp, constants: dict | None = None,
+                record: tuple = (), mask: bool = True, **kw) -> dict:
+    """Package ``name``'s perf-smoke ``stage`` (a ``*_seconds``
+    function) from fresh process state (``fresh_run``), the port's on
+    the CPU, with ``kw``; returns its stats.  ``constants`` sets the
+    smoke's module constants for the run (each side's own);
+    ``record`` names ``(module, function)`` pairs of the package, the
+    module as ``importlib`` finds it (``None`` for the package prefix
+    means the name is top-level, as the reference's ``tools/`` scripts
+    are), whose every result is kept in the stats under
+    ``"recorded"``: ``[(function, result), ...]``.  Without ``mask``
+    the port's storage servers run without their stale-read repair
+    (``unmasked``)."""
+    import torch
+    mod = perf_smoke(name)
+    seen: list = []
+    fresh_run(name)
+    with mp.context() as m:
+        for k, v in (constants or {}).items():
+            m.setattr(mod, k, v)
+        for path, fn in record:
+            if name == REF and path.startswith("tools."):
+                target = reference_tool(path[len("tools."):])
+            else:
+                target = importlib.import_module(f"{name}.{path}")
+            real = getattr(target, fn)
+
+            def recording(*a, _real=real, _fn=fn, **k):
+                out = _real(*a, **k)
+                seen.append((_fn, plain(out)))
+                return out
+            m.setattr(target, fn, recording)
+        if name == PORT:
+            kw["device"] = torch.device("cpu")
+            if not mask:
+                unmasked(m)
+        _, stats = getattr(mod, stage)(**kw)
+    if record:
+        stats["recorded"] = seen
+    return stats
+
+
+def reference_tool(name: str):
+    """The reference's ``tools/<name>.py`` as the perf smoke imports it
+    (a top-level module)."""
+    tools = os.path.join(os.path.dirname(_TESTS), "tools")
+    sys.path.insert(0, tools)
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(tools)
+
+
+def held_equal(ref: dict, port: dict, keys) -> dict:
+    """The two stages' ``keys`` equal; returns the reference's."""
+    a = {k: ref[k] for k in keys}
+    b = {k: port[k] for k in keys}
+    assert a == b, f"reference {a!r:.600} port {b!r:.600}"
+    return a
