@@ -188,7 +188,10 @@ commit and storage paths on the card and exits non-zero on any failure:
    bindings/c/test_c_smoke.c built against the port's header and
    libfdbtpu_c.so prints ``C ABI SMOKE OK``; tests/test_bindings.py's
    operation sequence through the port's Python binding over the C ABI
-   equal to the native client's; every acknowledged write read back; in
+   equal to the native client's; every acknowledged write read back
+   (an attempt of the failover that times out prints the requests it
+   was awaiting, by endpoint, role and method and the epoch of the view
+   that sent each, and the epoch each coordinator published then); in
    the second lifetime the worker-only server SIGKILLed, restarted by
    the monitor, and the writes read back; the servers hold the card and
    no CLI or C ABI client does (``/proc/<pid>/fd``; nvidia-smi's pids
@@ -212,7 +215,7 @@ commit and storage paths on the card and exits non-zero on any failure:
    time, B6's and B9's, each new phase's one-line result), then one JSON
    line with each kernel's launches (the resolver kernels' in phase 6's
    run, prefix_search's in phase 12's, and phases 20-24's and 27's in
-   ``launches_by_phase``, with 29's and 30's), max error, times and
+   ``launches_by_phase``, with 29's, 30's and 31's), max error, times and
    bound (K1 also its
    latency bound: B chain steps at the step time measured in phase 3;
    B8 its latency bound: one probe's search chain at N = 2**24 measured
@@ -254,7 +257,19 @@ commit and storage paths on the card and exits non-zero on any failure:
    backend, K1 = K3 > 0); every B8, K3 and K1 call recorded during the
    stage (the mesh's routed side in one rerun, its ratio being a
    wall-clock gate), each held to its plain version at tolerance 0;
-   the launches in ``launches_by_phase["30"]``.
+   the launches in ``launches_by_phase["30"]``;
+31. (after phase 27) the simulator's device modes: tests/
+   test_sim_determinism.py's child (a seeded 5-machine simulated
+   cluster with the device pipeline on), its imports re-rooted at the
+   port, in its ``default``, ``mesh_on`` (two resolvers, routed) and
+   ``devplane`` (verdict bitmask off, K2's in-place ring on, a 4-shard
+   read mirror) modes, each once on the card and once on the CPU, each
+   in a fresh process, all six at once: each mode's two traces hash to
+   the digest tests/test_torch_sim_determinism.py holds the port's
+   CPU run to (``SIM_DIGESTS``), every K1, K3, K2 and B8 call equals
+   its plain version (tolerance 0) with one record for each launch,
+   K1 = K3 > 0, and the devplane mode launches K2; the launches in
+   ``launches_by_phase["31"]``.
 
 Each phase's closing line goes to stderr too, after the seconds since
 the start; a wait on a child process (the north star, the farm, phase
@@ -270,6 +285,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -309,6 +325,20 @@ CHAOS_RUNS = [(0, 2, True, None), (17, 2, True, None),
               (101, 1, False, None), (0, 2, True, "disk")]
 SPECS = ["cycle_restart.toml", "backup_dr_chaos.toml", "region_chaos.toml",
          "engine_migration_chaos.toml"]
+# phase 31: three modes of tests/test_sim_determinism.py's child (a
+# seeded 5-machine simulated cluster), its imports re-rooted at the port,
+# and the SHA-256 of each mode's trace on the port, which
+# tests/test_torch_sim_determinism.py holds the port's CPU run to
+SIM_CHILD = os.path.join("tests", "test_sim_determinism.py")
+SIM_MODES = ("default", "mesh_on", "devplane")
+SIM_DIGESTS = {
+    "default":
+        "2fc34ed0e5c638799453cc55b5f8e78b3f6c67df30f124c7934bd7e0e39e3862",
+    "mesh_on":
+        "15ee5ce40d44400b104782fd72206c00e60265c36183c02515c2b31663ff6321",
+    "devplane":
+        "2fc34ed0e5c638799453cc55b5f8e78b3f6c67df30f124c7934bd7e0e39e3862",
+}
 CARD = ""          # nvidia-smi's name and power limit, set by main
 # the compact per-kernel and per-phase summary printed before the kernels
 # line, so that it stays in the tail of a long output
@@ -3488,6 +3518,80 @@ async def binding_observations_native(cli, prefix: bytes) -> list:
     return out
 
 
+# the client-facing roles of a published cluster state, by its key
+STATE_ROLES = {"grv_proxies": "grv_proxy", "commit_proxies": "commit_proxy",
+               "storage": "storage", "resolvers": "resolver",
+               "sequencer": "sequencer", "ratekeeper": "ratekeeper"}
+
+
+class OutstandingRequests:
+    """Wraps a client transport's ``request``: every request is kept
+    from its send to its end (a reply, an error, or a cancellation, as
+    when an attempt's ``wait_for`` cuts it), with the cluster state the
+    client's view held when it was sent, so that a timed-out attempt
+    names what it was awaiting (``report``).  ``view_fn`` returns the
+    client's current view."""
+
+    def __init__(self, transport, view_fn, role_methods: dict,
+                 coordinator_token: int) -> None:
+        self.requests: list = []    # [endpoint, epoch, state, sent, ended]
+        self.role_methods = role_methods
+        self.coordinator_token = coordinator_token
+        real = transport.request
+
+        async def request(endpoint, payload, timeout=None):
+            view, now = view_fn(), time.perf_counter()
+            self.requests = [r for r in self.requests
+                             if r[4] is None or r[4] > now - 60]
+            rec = [endpoint, view.epoch, view.state, now, None]
+            self.requests.append(rec)
+            try:
+                return await real(endpoint, payload, timeout)
+            finally:
+                rec[4] = time.perf_counter()
+        transport.request = request
+
+    def role(self, ep, state: dict) -> str:
+        """The role and method an endpoint names in a published state."""
+        addr = (ep.address.ip, ep.address.port)
+        for key, role in STATE_ROLES.items():
+            v = state.get(key)
+            for j, x in enumerate(v if isinstance(v, list) else [v]):
+                if isinstance(x, dict) and "token" in x \
+                        and tuple(x.get("addr", ())) == addr \
+                        and 0 <= ep.token - x["token"] < len(
+                            self.role_methods[role]):
+                    name = self.role_methods[role][ep.token - x["token"]][0]
+                    return f"{key}[{j}].{name}"
+        i = ep.token - self.coordinator_token
+        if 0 <= i < len(self.role_methods["coordinator"]):
+            return f"coordinator.{self.role_methods['coordinator'][i][0]}"
+        return "unknown"
+
+    def report(self, at: float) -> list:
+        """Each request outstanding at ``at`` (unanswered then, or cut at
+        it): its endpoint, the role and method it names, the epoch of the
+        view that sent it, and the seconds it had waited."""
+        return [{"endpoint": f"{ep.address}/{ep.token}",
+                 "role": self.role(ep, state), "epoch": epoch,
+                 "waited_s": round(at - sent, 3)}
+                for ep, epoch, state, sent, ended in self.requests
+                if sent <= at and (ended is None or ended >= at - 0.1)]
+
+
+async def published_epochs(coordinators) -> list:
+    """The epoch each coordinator publishes now, asked one by one: None
+    for one that does not answer within 5 s (the client's own refresh
+    waits for every coordinator, so it would hang on that one)."""
+    async def one(c):
+        try:
+            r = await asyncio.wait_for(c.open_database(), 5)
+        except Exception:  # noqa: BLE001 — no answer is the answer
+            return None
+        return (r or {}).get("epoch")
+    return list(await asyncio.gather(*(one(c) for c in coordinators)))
+
+
 class Deployment:
     """One ``python3 -m foundationdb_tpu_torch.monitor`` over a fresh conf
     in ``tmp``: tests/test_monitor.py's layout, three coordinator servers
@@ -3629,7 +3733,8 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
 
     from foundationdb_tpu_torch.cli import open_cli
     from foundationdb_tpu_torch.native.build import build
-    from foundationdb_tpu_torch.rpc.stubs import CoordinatorClient
+    from foundationdb_tpu_torch.rpc.stubs import (ROLE_METHODS,
+                                                  CoordinatorClient)
     from foundationdb_tpu_torch.rpc.tcp_transport import TcpTransport
     from foundationdb_tpu_torch.rpc.transport import (NetworkAddress,
                                                       WLTOKEN_COORDINATOR)
@@ -3664,6 +3769,10 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
 
                 async def failover():
                     cli_ = await open_cli(d.cf_path, Knobs(), timeout=60)
+                    # what a timed-out attempt was still awaiting
+                    waits = OutstandingRequests(
+                        cli_.view.transport, lambda: cli_.view,
+                        ROLE_METHODS, WLTOKEN_COORDINATOR)
                     t = TcpTransport(NetworkAddress("127.0.0.1", 0))
                     leader = None
                     try:
@@ -3702,6 +3811,17 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                                     else str(got)[:120]
                             except asyncio.TimeoutError:
                                 got = outcome = "timeout"
+                                out.setdefault("timed_out", []).append({
+                                    "attempt": len(attempts),
+                                    "awaiting": waits.report(
+                                        time.perf_counter()),
+                                    "published_epochs":
+                                        await published_epochs(
+                                            cli_.coordinators),
+                                    "view_epoch": cli_.view.epoch})
+                                say(f"deployment: attempt {len(attempts)} "
+                                    f"timed out: "
+                                    f"{json.dumps(out['timed_out'][-1])}")
                             except Exception as e:
                                 outcome = type(e).__name__
                                 raise
@@ -3849,7 +3969,10 @@ def check_deployment_phase(r: dict, card: str) -> str:
         f"through the CLI again {r['serve_after_restart_s']:.3f} s after the "
         f"kill ({card})")
     say(f"deployment: failover attempts [start s after the kill, outcome, "
-        f"s]: {json.dumps(r['failover_attempts'])}")
+        f"s]: {json.dumps(r['failover_attempts'])}; timed-out attempts "
+        f"(the requests each was awaiting: endpoint, role and method, the "
+        f"sending view's epoch; each coordinator's published epoch then) "
+        f"{json.dumps(r.get('timed_out', []))}")
     say(f"deployment: status epoch {r['status']['epoch']}, available "
         f"{r['status']['database_available']}, resolver_device "
         f"{json.dumps(dv)}; C smoke rc {rc} `{so}' in {r['c_smoke_s']:.3f} s; "
@@ -4234,6 +4357,185 @@ def check_resolve_stage(r: dict, card: str = "") -> str:
             f"{s['speedup']:.4f} against the floor {r['floor']}; K1 = K3 = "
             f"{got['commit_chain']}; {err['commit_chain'][0]} K1 and "
             f"{err['hist_check'][0]} K3 calls equal to plain ({card})")
+
+
+# --------------------------------------------------------------------------
+# phase 31: the simulator's device modes, each in a fresh process
+
+
+def sim_child_source(root: str) -> str:
+    """``SIM_CHILD`` (the reference's same-seed trace test, whose child
+    half runs a seeded 5-machine simulated cluster and prints the SHA-256
+    of its trace) with every import re-rooted at the port, its
+    repository at ``root``, and its simulated cluster on the module's
+    ``_DEVICE``: the CPU unless a caller sets it before ``_child``."""
+    with open(os.path.join(root, SIM_CHILD)) as f:
+        src = re.sub(r"\bfoundationdb_tpu\b", "foundationdb_tpu_torch",
+                     f.read())
+    for old, new in (
+            ("_REPO = os.path.dirname(os.path.dirname(_THIS))",
+             f"_REPO = {root!r}"),
+            ("_N_MACHINES = 5\n", "_N_MACHINES = 5\n_DEVICE = \"cpu\"\n"),
+            ("durable_storage=durable,",
+             "durable_storage=durable, device=_DEVICE,")):
+        if src.count(old) != 1:
+            fail(f"{SIM_CHILD} no longer has one {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def held_to_plain_ring():
+    """Records every ring_append (K2) call the path makes, by wrapping
+    the kernels module's wrapper (the conflict set calls it through the
+    module): copies of its inputs before it and of its output after it.
+    Returns (calls, restore)."""
+    from foundationdb_tpu_torch.ops import kernels as K
+    real, calls = K.ring_append, []
+
+    def recorded(buf, slab, out):
+        args = (buf.clone(), slab.clone())
+        real(buf, slab, out)
+        calls.append((*args, out.clone()))
+        return out
+
+    def restore():
+        K.ring_append = real
+    K.ring_append = recorded
+    return calls, restore
+
+
+def ring_err(calls) -> int:
+    """Each recorded K2 call against the plain version on its own
+    inputs: the max abs error."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import kernels as K
+    return max((int((K.ring_append_plain(buf, slab, torch.empty_like(buf))
+                     - out).abs().max()) for buf, slab, out in calls),
+               default=0)
+
+
+def sim_mode_child(mode: str, trace_path: str, dev_name: str) -> None:
+    """The body of one phase-31 process: ``SIM_CHILD``'s child for
+    ``mode`` through the port on ``dev_name``, with every K1, K3, K2 and
+    B8 call recorded and held to its plain version.  The child prints its
+    own line (the trace's SHA-256 and event counts); then one JSON line:
+    seconds, launches, and each kernel's (calls, max abs error)."""
+    import types
+
+    import torch
+
+    from foundationdb_tpu_torch.ops import kernels as K
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        K.build_missing()
+    mod = types.ModuleType("sim_determinism_child")
+    mod.__file__ = os.path.join(root, SIM_CHILD)
+    exec(compile(sim_child_source(root), mod.__file__, "exec"),
+         mod.__dict__)
+    mod._DEVICE = dev
+    resolver, restore_r = held_to_plain_resolver()
+    ring, restore_k2 = held_to_plain_ring()
+    b8, restore_b8 = held_to_plain()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        mod._child(trace_path, mode)
+        sync(dev)
+    finally:
+        restore_b8()
+        restore_k2()
+        restore_r()
+    seconds = time.perf_counter() - t0
+    errs = resolver_calls_err(resolver)
+    errs["ring_append"] = [len(ring), ring_err(ring)]
+    errs["prefix_search"] = [len(b8), plain_err(b8)[0]]
+    print(json.dumps({"mode": mode, "device": dev_name, "seconds": seconds,
+                      "launches": {k: v.launches
+                                   for k, v in K.KERNELS.items()},
+                      "calls": errs}), flush=True)
+
+
+def sim_modes_phase(tmp: str) -> dict:
+    """Phase 31: each of SIM_MODES once on the card and once on the CPU,
+    each in a fresh process of its own (``sim_mode_child``), all six at
+    once; returns {mode: {"cuda": result, "cpu": result}}, each result
+    the child's JSON line with its trace digest and event counts."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for mode in SIM_MODES:
+        for dev_name in ("cuda", "cpu"):
+            procs[mode, dev_name] = subprocess.Popen(
+                [sys.executable, os.path.join(repo, "chip_smoke.py"),
+                 "--sim-mode", mode,
+                 os.path.join(tmp, f"{mode}-{dev_name}.jsonl"), dev_name],
+                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=dict(os.environ, PYTHONPATH=repo,
+                                    OMP_NUM_THREADS="1"))
+    out: dict = {}
+    for (mode, dev_name), p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=left(120))
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"phase 31: {mode} on {dev_name} still running")
+        lines = stdout.strip().splitlines()
+        if p.returncode != 0 or len(lines) < 2:
+            fail(f"phase 31: {mode} on {dev_name}: rc {p.returncode}: "
+                 f"{stderr[-3000:]}")
+        r = json.loads(lines[-1])
+        (r["sha256"], *counts) = lines[-2].split()
+        r["events"] = [int(c) for c in counts]
+        out.setdefault(mode, {})[dev_name] = r
+    return out
+
+
+def check_sim_modes_phase(r: dict, card: str = "") -> tuple[dict, str]:
+    """Phase 31's gates: for each mode the card's trace and the CPU's
+    hash to SIM_DIGESTS[mode], every recorded kernel call equals its
+    plain version (tolerance 0) and the card's calls are its launches,
+    K1 = K3 > 0 on the card, and the devplane mode launches K2.
+    Returns (the card runs' launches, the one-line result)."""
+    total: dict = {}
+    for mode in SIM_MODES:
+        card_r, cpu_r = r[mode]["cuda"], r[mode]["cpu"]
+        got, calls = card_r["launches"], card_r["calls"]
+        say(f"sim mode {mode}: card {card_r['seconds']:.3f} s, cpu "
+            f"{cpu_r['seconds']:.3f} s; trace sha256 card "
+            f"{card_r['sha256']} cpu {cpu_r['sha256']} (expected "
+            f"{SIM_DIGESTS[mode]}); events {card_r['events']} (cpu "
+            f"{cpu_r['events']}); launches {got}; calls held to plain "
+            f"(calls, max_abs_err) {calls}; cpu calls {cpu_r['calls']} "
+            f"({card})")
+        if not card_r["sha256"] == cpu_r["sha256"] == SIM_DIGESTS[mode]:
+            fail(f"phase 31: the {mode} traces differ: card "
+                 f"{card_r['sha256']}, cpu {cpu_r['sha256']}, expected "
+                 f"{SIM_DIGESTS[mode]}")
+        if any(e for _, e in calls.values()) or any(
+                got[k] != calls[k][0] for k in calls):
+            fail(f"phase 31: a kernel call of {mode} differs from its plain "
+                 f"version, or a launch went unrecorded: {calls}, {got}")
+        if {k: v[0] for k, v in calls.items()} != \
+                {k: v[0] for k, v in cpu_r["calls"].items()}:
+            fail(f"phase 31: {mode} called the kernels {calls} times on the "
+                 f"card and {cpu_r['calls']} on the CPU")
+        if got["commit_chain"] != got["hist_check"] \
+                or got["commit_chain"] == 0:
+            fail(f"phase 31: {mode} launched {got}")
+        if mode == "devplane" and got["ring_append"] == 0:
+            fail("phase 31: the devplane mode (RESOLVER_RING_INPLACE) "
+                 "launched no ring_append")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    slowest = max(x["seconds"] for m in r.values() for x in m.values())
+    return total, (
+        f"phase 31: {', '.join(SIM_MODES)} on the card and the CPU, traces "
+        f"equal to the held digests; launches {total} (K2 "
+        f"{r['devplane']['cuda']['launches']['ring_append']} in devplane), "
+        f"every call equal to plain; slowest child's simulation "
+        f"{slowest:.3f} s ({card})")
 
 
 # --------------------------------------------------------------------------
@@ -5015,13 +5317,20 @@ def main() -> None:
     SUMMARY.append(check_resolve_stage(r27, CARD))
     got27 = r27["launches"]
     phase_done(f"phase 27: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+    # 31. the simulator's device modes, each in a fresh process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got31, line31 = check_sim_modes_phase(sim_modes_phase(tmp), CARD)
+    SUMMARY.append(line31)
+    phase_done(f"phase 31: {time.perf_counter() - t0:.1f} s ({CARD})")
     report["prefix_search"]["max_abs_err"] = max(
         report["prefix_search"]["max_abs_err"], err20, err21)
 
     for got in (got4, got5, got6, got7, got8, got9, *gots, got10, got10c,
                 *gots11, got12, *gots13, *gots14, *gots15, got16, got18,
                 got20, got21, got22, got23, got24, got27, got29, got30,
-                *gots30):
+                *gots30, got31):
         if got["hist_check"] != got["commit_chain"]:
             fail(f"a resolved batch is one K3 and one K1 launch: {got}")
 
@@ -5030,13 +5339,14 @@ def main() -> None:
     # RESOLVER_RING_INPLACE (phase 6), the one run that takes all three;
     # prefix_search's are those of the durable read-back (phase 12, every
     # engine); each phase printed its own counts above, and phases 20-24's,
-    # 27's, 29's (the north star's process and its bench subprocesses) and
-    # 30's stand in each row too (phases 25 and 26 launch in their server and
-    # seed processes: the status document's dispatches and each seed's
-    # launches show them).
+    # 27's, 29's (the north star's process and its bench subprocesses),
+    # 30's and 31's (its card processes) stand in each row too (phases 25
+    # and 26 launch in their server and seed processes: the status
+    # document's dispatches and each seed's launches show them).
     counts = dict(got7, prefix_search=got12["prefix_search"])
     by_phase = {"20": got20, "21": got21, "22": got22, "23": got23,
-                "24": got24, "27": got27, "29": got29, "30": got30}
+                "24": got24, "27": got27, "29": got29, "30": got30,
+                "31": got31}
     meta = {
         "commit_chain": ("foundationdb_tpu_torch/csrc/commit_chain.cu",
                          "foundationdb_tpu/ops/conflict_jax.py:221"),
@@ -5078,4 +5388,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sim-mode"] and len(sys.argv) == 5:
+        sim_mode_child(*sys.argv[2:])
+    else:
+        main()

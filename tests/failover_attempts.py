@@ -11,10 +11,15 @@ discipline of ``chip_smoke.py`` phase 25).  Prints one JSON line:
 ...], "failover_s": ...}``.  With ``--fresh-cli`` the attempts go
 through a CLI opened just before the kill, whose first command is the
 attempt (phase 25's shape); otherwise through the CLI that made the
-first commit (the test's shape).
+first commit (the test's shape).  With ``--deployment`` the cluster
+is phase 25's instead (``run_deployment``): the package's fdbmonitor
+over three coordinator servers and a worker-only fourth, the monitor
+SIGSTOPped from the kill until a commit lands, the attempts through a
+fresh CLI.
 
     python tests/failover_attempts.py foundationdb_tpu [--fresh-cli]
     python tests/failover_attempts.py foundationdb_tpu_torch [--fresh-cli]
+    python tests/failover_attempts.py PACKAGE --deployment [--stop-leader]
 
 The port's servers run ``--device cpu``.  Run on a host with no card,
 each package takes 20-60 s.
@@ -136,12 +141,177 @@ def run(package: str, tmp: str, fresh_cli: bool = False) -> dict:
     return out
 
 
+def started(tmp: str) -> dict:
+    """Each server's pids, in the order its monitor started them."""
+    pids: dict = {}
+    with open(os.path.join(tmp, "monitor.err"), errors="replace") as f:
+        for ln in f:
+            if "started fdbserver." in ln:
+                sid = int(ln.split("fdbserver.")[1].split()[0])
+                pids.setdefault(sid, []).append(
+                    int(ln.split("pid=")[1].split()[0]))
+    return pids
+
+
+def cli_exec(package: str, cf_path: str, script: str, env: dict) -> str:
+    """One ``python -m <package>.cli --exec`` run: its output, or its
+    exit code and the end of its errors."""
+    p = subprocess.run([sys.executable, "-m", f"{package}.cli", "-C",
+                        cf_path, "--exec", script], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    return p.stdout if p.returncode == 0 else \
+        f"rc={p.returncode} {p.stderr[-600:]}"
+
+
+def run_deployment(package: str, tmp: str,
+                   stop_leader: bool = False) -> dict:
+    """Phase 25's first lifetime up to its failover, for either package:
+    the package's fdbmonitor over three coordinator servers and a
+    worker-only fourth (``min_workers=3,replication=2``, the port's with
+    ``device = cpu``); the first commit through the CLI, 16 writes, a
+    range read and the status document, each a CLI process of its own;
+    then a CLI opened here, the elected leader's server SIGKILLed with the
+    monitor SIGSTOPped until a commit lands, and the attempts timed as
+    ``run`` times them.  An attempt that times out is reported as phase
+    25 reports it (``chip_smoke.OutstandingRequests``): the requests it
+    was awaiting and the epoch each coordinator published then.  With
+    ``stop_leader`` the leader's server is SIGSTOPped instead of killed
+    (a process that holds its connections open and answers nothing) and
+    SIGKILLed after the attempts, which then give up 120 s after the
+    stop.  This process's client trace goes to ``client.jsonl`` in
+    ``tmp``."""
+    import chip_smoke as cs
+    imp = lambda m: importlib.import_module(f"{package}.{m}")  # noqa: E731
+    ClusterFile = imp("core.cluster_file").ClusterFile
+    NetworkAddress = imp("rpc.transport").NetworkAddress
+    trace = imp("runtime.trace")
+    ports = free_ports(4)
+    cf_path = os.path.join(tmp, "fdb.cluster")
+    ClusterFile("deploy", "t1", [NetworkAddress("127.0.0.1", p)
+                                 for p in ports[:3]]).save(cf_path)
+    conf = os.path.join(tmp, "fdbmonitor.conf")
+    device = "device = cpu\n" if package.endswith("_torch") else ""
+    with open(conf, "w") as f:
+        f.write(f"[general]\ncluster-file = {cf_path}\nrestart-delay = 0.5\n"
+                f"{device}logdir = {tmp}\n" + "".join(
+                    f"[fdbserver.{p}]\nlisten = 127.0.0.1:{p}\n"
+                    "spec = min_workers=3,replication=2\n" for p in ports))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "monitor.err"), "wb") as ef:
+        mon = subprocess.Popen([sys.executable, "-m", f"{package}.monitor",
+                                "-C", conf], cwd=REPO, env=env,
+                               stdout=subprocess.DEVNULL, stderr=ef)
+    out: dict = {"package": package, "shape": "deployment", "attempts": []}
+    prev = trace.get_trace_log()
+    trace.set_trace_log(trace.TraceLog(path=os.path.join(tmp,
+                                                         "client.jsonl")))
+    try:
+        while "Committed" not in cli_exec(package, cf_path, "set first 1",
+                                          env):
+            if time.perf_counter() - t0 > 300 or mon.poll() is not None:
+                raise RuntimeError("no first commit through the CLI")
+            time.sleep(0.5)
+        out["first_commit_s"] = round(time.perf_counter() - t0, 3)
+        got = cli_exec(package, cf_path, "; ".join(
+            f"set deploy/{i:02d} v{i}" for i in range(16)), env)
+        assert got.split() == ["Committed"] * 16, got
+        assert len(cli_exec(package, cf_path, "getrange deploy/ deploy0 100",
+                            env).splitlines()) == 16
+        json.loads(cli_exec(package, cf_path, "status json", env))
+
+        async def failover():
+            open_cli = imp("cli").open_cli
+            CoordinatorClient = imp("rpc.stubs").CoordinatorClient
+            TcpTransport = imp("rpc.tcp_transport").TcpTransport
+            WLTOKEN_COORDINATOR = imp("rpc.transport").WLTOKEN_COORDINATOR
+            cli = await open_cli(cf_path, imp("runtime.knobs").Knobs(),
+                                 timeout=60)
+            waits = cs.OutstandingRequests(
+                cli.view.transport, lambda: cli.view,
+                imp("rpc.stubs").ROLE_METHODS, WLTOKEN_COORDINATOR)
+            t = TcpTransport(NetworkAddress("127.0.0.1", 0))
+            leader = None
+            try:
+                for p in ports[:3]:
+                    co = CoordinatorClient(t, NetworkAddress("127.0.0.1", p),
+                                           WLTOKEN_COORDINATOR)
+                    try:
+                        led = await asyncio.wait_for(co.read_leader(), 5)
+                    except (Exception, asyncio.TimeoutError):
+                        continue
+                    if led is not None:
+                        leader = led[1][1]
+                        break
+            finally:
+                await t.close()
+            assert leader in ports, f"no leader found ({leader})"
+            out["leader"] = ports.index(leader)
+            os.kill(mon.pid, signal.SIGSTOP)
+            victim = started(tmp)[leader][-1]
+            try:
+                os.kill(victim, signal.SIGSTOP if stop_leader
+                        else signal.SIGKILL)
+                tk = time.perf_counter()
+                while True:
+                    ta = time.perf_counter()
+                    try:
+                        got = await asyncio.wait_for(
+                            cli.execute("set after failover"), 30)
+                        outcome = "committed" if got == "Committed" \
+                            else str(got)[:120]
+                    except asyncio.TimeoutError:
+                        got = outcome = "timeout"
+                        out.setdefault("timed_out", []).append({
+                            "attempt": len(out["attempts"]),
+                            "awaiting": waits.report(time.perf_counter()),
+                            "published_epochs": await cs.published_epochs(
+                                cli.coordinators),
+                            "view_epoch": cli.view.epoch})
+                    except Exception as e:  # noqa: BLE001 — an outcome
+                        got, outcome = None, type(e).__name__
+                    out["attempts"].append([round(ta - tk, 3), outcome,
+                                            round(time.perf_counter() - ta,
+                                                  3)])
+                    if got == "Committed":
+                        out["failover_s"] = round(time.perf_counter() - tk,
+                                                  3)
+                        break
+                    if time.perf_counter() - tk > (120 if stop_leader
+                                                   else 240):
+                        out["failover_s"] = None
+                        break
+                    await asyncio.sleep(0.25)
+            finally:
+                if stop_leader:
+                    os.kill(victim, signal.SIGKILL)
+                os.kill(mon.pid, signal.SIGCONT)
+            await cli.view.transport.close()
+        asyncio.run(asyncio.wait_for(failover(), 600))
+    finally:
+        trace.get_trace_log().close()
+        trace.set_trace_log(prev)
+        mon.send_signal(signal.SIGCONT)
+        mon.send_signal(signal.SIGTERM)
+        try:
+            mon.wait(60)
+        except subprocess.TimeoutExpired:
+            mon.kill()
+            mon.wait()
+    out["monitor_rc"] = mon.returncode
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     sys.path.insert(0, REPO)
     with tempfile.TemporaryDirectory() as tmp:
-        print(json.dumps(run(argv[0], tmp, "--fresh-cli" in argv)),
-              flush=True)
+        if "--deployment" in argv:
+            r = run_deployment(argv[0], tmp, "--stop-leader" in argv)
+        else:
+            r = run(argv[0], tmp, "--fresh-cli" in argv)
+        print(json.dumps(r), flush=True)
     return 0
 
 

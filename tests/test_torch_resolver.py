@@ -306,3 +306,114 @@ def test_port_has_no_dangling_imports():
     assert os.path.isdir(pkg) and seen > 500
     assert set(ENTRY_POINTS) <= set(_port_sources())
     assert not bad, bad
+
+
+# the reference's test files that no parity file names in a ``CASES``
+# dict: each is held by the parity file named, which runs its scenarios
+# or cases another way
+HELD_ELSEWHERE = {
+    "test_backends.py": ("test_torch_dict.py",
+                         "the backend cases, ported beside the dictionary's"),
+    "test_bindings.py": ("test_torch_bindings.py",
+                         "runs as written through reference_module"),
+    "test_btree.py": ("test_torch_storage.py",
+                      "the btree engine's restarts and answers, both "
+                      "packages under one seed"),
+    "test_conflict_jax.py": ("test_torch_conflict.py",
+                             "its cases against the port's conflict set"),
+    "test_conflict_np.py": ("test_torch_oracle.py",
+                            "its traces and cases through both oracles"),
+    "test_coordination.py": ("test_torch_coordination.py",
+                             "its scenarios on both packages"),
+    "test_data_distribution.py": ("test_torch_recovery.py",
+                                  "its scenarios on both packages"),
+    "test_device_pipeline.py": ("test_torch_read_serve.py",
+                                "its device-read tests on both packages"),
+    "test_durability.py": ("test_torch_storage.py",
+                           "its restarts on both packages"),
+    "test_failure_monitor.py": ("test_torch_coordination.py",
+                                "its scenarios on both packages"),
+    "test_layers_chaos.py": ("test_torch_sim.py",
+                             "its chaos scenario as written"),
+    "test_lsm.py": ("test_torch_storage.py",
+                    "the lsm engine's restarts and answers, both packages "
+                    "under one seed"),
+    "test_metrics_tool.py": ("test_torch_tools.py",
+                             "its scenario against the port's tool"),
+    "test_monitor.py": ("test_torch_monitor.py",
+                        "runs as written through reference_module"),
+    "test_ops_workloads.py": ("test_torch_sim_specs.py",
+                              "its spec cases on both packages"),
+    "test_perf_smoke.py": ("test_torch_perf_smoke_device.py",
+                           "its 17 stages through torch_parity.stage_stats "
+                           "in the four test_torch_perf_smoke_* files"),
+    "test_pipeline.py": ("test_torch_cluster.py",
+                         "its scenarios through the port's Cluster"),
+    "test_recovery.py": ("test_torch_recovery.py",
+                         "its scenarios on both packages"),
+    "test_resolver_mesh.py": ("test_torch_resolver_mesh.py",
+                              "every case through hold_to_reference"),
+    "test_restarting.py": ("test_torch_sim_specs.py",
+                           "every case through hold_to_reference"),
+    "test_rpc.py": ("test_torch_rpc.py", "its scenarios on both packages"),
+    "test_scrubber.py": ("test_torch_recovery.py",
+                         "its scenarios on both packages"),
+    "test_server.py": ("test_torch_cli.py",
+                       "its multi-process scenarios through "
+                       "reference_module, with test_torch_server.py"),
+    "test_sharded.py": ("test_torch_sharded.py",
+                        "its seeded streams on both packages"),
+    "test_sim_harness.py": ("test_torch_sim.py",
+                            "every case through hold_to_reference"),
+    "test_special_keys.py": ("test_torch_client_layers.py",
+                             "its scenarios on both packages"),
+    "test_tls.py": ("test_torch_cli.py",
+                    "runs as written through reference_module"),
+    "test_trace_tool.py": ("test_torch_tools.py",
+                           "its scenarios against the port's tool"),
+    "test_workloads.py": ("test_torch_workloads.py",
+                          "its cases in the four test_torch_workloads* "
+                          "files"),
+    "test_workloads_r5.py": ("test_torch_workloads_r5.py",
+                             "every case on both packages"),
+}
+
+
+def _cases_keys(path: str) -> set:
+    """The string keys of the module-level ``...CASES`` dicts of a test
+    file: the reference's test files it holds case by case."""
+    out = set()
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)) \
+                and isinstance(node.value, ast.Dict):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            if any(isinstance(t, ast.Name) and t.id.endswith("CASES")
+                   for t in targets):
+                out |= {k.value for k in node.value.keys
+                        if isinstance(k, ast.Constant)}
+    return out
+
+
+def test_every_reference_test_file_is_held():
+    """Every test file of the reference (``tests/test_*.py`` but
+    ``test_torch_*``) is named in a parity file's ``CASES``, or in
+    ``HELD_ELSEWHERE`` with the parity file that runs it, which names
+    it; a file the reference gains fails here until a parity file holds
+    it."""
+    tests = os.path.join(ROOT, "tests")
+    files = os.listdir(tests)
+    reference = {f for f in files if f.startswith("test_")
+                 and f.endswith(".py") and not f.startswith("test_torch_")}
+    held = set()
+    for f in files:
+        if f.startswith("test_torch_") and f.endswith(".py"):
+            held |= _cases_keys(os.path.join(tests, f))
+    assert not held & set(HELD_ELSEWHERE), held & set(HELD_ELSEWHERE)
+    for ref, (port, _) in HELD_ELSEWHERE.items():
+        assert ref[:-3] in open(os.path.join(tests, port)).read(), \
+            f"{port} does not name {ref}"
+    assert not reference - held - set(HELD_ELSEWHERE), \
+        sorted(reference - held - set(HELD_ELSEWHERE))
+    assert len(reference) > 70 and not (held | set(HELD_ELSEWHERE)) - \
+        reference

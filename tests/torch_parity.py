@@ -558,7 +558,7 @@ def run_reference_test(file: str, test: str, name: str, mp,
                        device=None, retire: bool = True,
                        args=None, edits: tuple = (),
                        recorded: dict | None = None,
-                       mask: bool = True) -> dict:
+                       mask: bool = True, left_out=()) -> dict:
     """Run the reference's ``file::test`` (with the parameters
     ``args``: a dict, or a function of the scenario's module that
     returns one; its source changed by ``edits`` as ``reference_module``
@@ -567,7 +567,8 @@ def run_reference_test(file: str, test: str, name: str, mp,
     showed: the transcript (with ``recorded``'s calls, as ``record``
     takes them), each simulated disk's bytes, and the
     LayerMismatch events it traced.  The port runs as
-    ``patch_port(device, retire, mask)`` sets it."""
+    ``patch_port(device, retire, mask)`` sets it.  Each dict key named
+    in ``left_out`` is dropped from the transcript (``without``)."""
     fresh_run(name)
     log: list = []
     with mp.context() as m:
@@ -582,11 +583,23 @@ def run_reference_test(file: str, test: str, name: str, mp,
             if "captured_trace" in inspect.signature(fn).parameters:
                 kw["captured_trace"] = events
             fn(**kw)
-    return {"transcript": log,
+    return {"transcript": without(log, set(left_out)),
             "disks": [{p: bytes(b) for p, b in fs.disks.items()}
                       for fs in disks],
             "mismatches": [plain(e) for e in events
                            if e.get("Type") == "LayerMismatch"]}
+
+
+def without(x, keys: set):
+    """Plain data ``x`` with every dict entry whose key is in ``keys``
+    dropped, at any depth."""
+    if not keys:
+        return x
+    if isinstance(x, dict):
+        return {k: without(v, keys) for k, v in x.items() if k not in keys}
+    if isinstance(x, (list, tuple)):
+        return type(x)(without(v, keys) for v in x)
+    return x
 
 
 def reference_cases(cases: dict) -> list:
@@ -599,12 +612,16 @@ def reference_param_cases(cases: dict) -> list:
     """``{file: [test, ...]}`` as pytest parameters ``(file, test,
     args)``: one for each case of a test's own ``parametrize`` marks
     (``args`` its keyword arguments), one with ``args`` empty for a test
-    without them."""
+    without them.  A test the reference marks ``slow`` gives cases
+    marked ``slow`` too: tier-1 leaves both out."""
     out = []
     for f, tests in cases.items():
         mod = reference_module(f, REF)
         for t in tests:
             combos = [{}]
+            marks = [pytest.mark.slow] if any(
+                m.name == "slow"
+                for m in getattr(getattr(mod, t), "pytestmark", [])) else []
             for m in getattr(getattr(mod, t), "pytestmark", []):
                 if m.name != "parametrize":
                     continue
@@ -616,8 +633,54 @@ def reference_param_cases(cases: dict) -> list:
                 ident = "-".join(str(v) for v in kw.values())
                 out.append(pytest.param(
                     f, t, kw, id=f"{f[5:-3]}::{t[5:]}"
-                    + (f"[{ident}]" if ident else "")))
+                    + (f"[{ident}]" if ident else ""), marks=marks))
     return out
+
+
+class _Teardown:
+    """A generator fixture's rest, run by ``undo``."""
+
+    def __init__(self, gen) -> None:
+        self.gen = gen
+
+    def undo(self) -> None:
+        next(self.gen, None)
+
+
+def case_fixtures(test: str, args: dict, tmp_path_factory,
+                  patches: list):
+    """``run_reference_test``'s ``args`` for one case of the reference's
+    ``test``: its parameters, and the pytest fixtures it asks for, each
+    run its own: a fresh directory (``tmp_path``) and a MonkeyPatch
+    (``monkeypatch``).  The module's ``autouse`` fixtures are set up
+    first, with the same fixtures.  What needs undoing after the run (a
+    MonkeyPatch, a generator fixture's teardown) is appended to
+    ``patches``; the caller undoes it, last first."""
+    def fixtures(mod):
+        mp = pytest.MonkeyPatch()
+        patches.append(mp)
+        given = {"monkeypatch": mp}
+
+        def call(fn):
+            params = inspect.signature(fn).parameters
+            if "tmp_path" in params and "tmp_path" not in given:
+                given["tmp_path"] = tmp_path_factory.mktemp("case")
+            return fn(**{k: given[k] for k in params if k in given})
+        for v in list(vars(mod).values()):
+            marker = getattr(v, "_fixture_function_marker", None)
+            if marker is not None and marker.autouse:
+                out = call(v._get_wrapped_function())
+                if inspect.isgenerator(out):
+                    next(out)
+                    patches.append(_Teardown(out))
+        kw = dict(args)
+        wanted = inspect.signature(getattr(mod, test)).parameters
+        for k in ("monkeypatch", "tmp_path"):
+            if k in wanted:
+                kw[k] = given.get(k) or tmp_path_factory.mktemp("case")
+                given[k] = kw[k]
+        return kw
+    return fixtures
 
 
 def assert_same(ref: dict, port: dict) -> None:
@@ -637,7 +700,7 @@ def hold_to_reference(file: str, test: str, mp, args=None,
                       recovers: bool = False, port_args=None,
                       port_edits: tuple = (),
                       recorded: dict | None = None,
-                      stale_reads: bool = False) -> dict:
+                      stale_reads: bool = False, left_out=()) -> dict:
     """The reference's ``file::test`` run on both packages, each with its
     own assertions, and what they showed held equal (``assert_same``);
     returns the reference's.  ``port_args`` are the port's parameters
@@ -649,18 +712,54 @@ def hold_to_reference(file: str, test: str, mp, args=None,
     the clear is durable (``stale_reads``: the reference serves the row,
     the port repairs that) runs the port twice the same way: as it is,
     and without the repair (``unmasked``) for the comparison.
-    ``recorded`` adds calls to both transcripts (``record``)."""
+    ``recorded`` adds calls to both transcripts (``record``), and
+    ``left_out`` names the dict keys dropped from both (``without``)."""
     ref = run_reference_test(file, test, REF, mp, args=args,
-                             recorded=recorded)
+                             recorded=recorded, left_out=left_out)
     port_args = args if port_args is None else port_args
     if recovers or stale_reads:
         run_reference_test(file, test, PORT, mp, args=port_args,
                            edits=port_edits, recorded=recorded)
     port = run_reference_test(file, test, PORT, mp, args=port_args,
                               retire=not recovers, edits=port_edits,
-                              recorded=recorded, mask=not stale_reads)
+                              recorded=recorded, mask=not stale_reads,
+                              left_out=left_out)
     assert_same(ref, port)
     return ref
+
+
+def hold_case(file: str, test: str, args: dict, mp, tmp_path_factory,
+              recorded: dict | None = None, recovers: bool = False,
+              wall_clock: bool = False, port_edits: tuple = (),
+              left_out=()) -> dict:
+    """One case of the reference's ``file::test`` (its parameters
+    ``args``, its fixtures from ``case_fixtures``) on both packages, each
+    with its own assertions, held as ``hold_to_reference`` holds it;
+    returns the reference's.  A ``wall_clock`` scenario runs an
+    in-process cluster on a real event loop, whose versions come from
+    the host's clock, so two runs of one package differ there: it is
+    held to the same transactions' calls (``RECORDED``, not
+    ``recorded``) in the same order and the same files on each
+    simulated disk."""
+    patches: list = []
+    try:
+        fx = case_fixtures(test, args, tmp_path_factory, patches)
+        if not wall_clock:
+            return hold_to_reference(file, test, mp, args=fx,
+                                     recovers=recovers,
+                                     port_edits=port_edits,
+                                     recorded=recorded, left_out=left_out)
+        ref = run_reference_test(file, test, REF, mp, args=fx)
+        port = run_reference_test(file, test, PORT, mp, args=fx,
+                                  edits=port_edits)
+        assert [e[0] for e in ref["transcript"]] == \
+            [e[0] for e in port["transcript"]]
+        assert [sorted(d) for d in ref["disks"]] == \
+            [sorted(d) for d in port["disks"]]
+        return ref
+    finally:
+        for m in reversed(patches):
+            m.undo()
 
 
 def results_of(shown: dict, fn: str) -> list:
