@@ -333,11 +333,11 @@ SIM_CHILD = os.path.join("tests", "test_sim_determinism.py")
 SIM_MODES = ("default", "mesh_on", "devplane")
 SIM_DIGESTS = {
     "default":
-        "2fc34ed0e5c638799453cc55b5f8e78b3f6c67df30f124c7934bd7e0e39e3862",
+        "a70e80ac85621b809c893450c7f07760081e7206cc1756eadf53b12d87dbf689",
     "mesh_on":
-        "15ee5ce40d44400b104782fd72206c00e60265c36183c02515c2b31663ff6321",
+        "40c806513e072e2f4403eed0fec5f046b2bb8aaa9b17ea958f3ef339048221b4",
     "devplane":
-        "2fc34ed0e5c638799453cc55b5f8e78b3f6c67df30f124c7934bd7e0e39e3862",
+        "a70e80ac85621b809c893450c7f07760081e7206cc1756eadf53b12d87dbf689",
 }
 CARD = ""          # nvidia-smi's name and power limit, set by main
 # the compact per-kernel and per-phase summary printed before the kernels
@@ -2628,7 +2628,16 @@ def regions_phase(dev, n_keys: int = CLUSTER_KEYS, clients: int = 16,
             lambda s: s["epoch"] > state["epoch"]
             and all(dc_of(a) == "dc2" for a in s["log_cfg"][-1]["tlogs"]))
         await db.refresh()
-        await asyncio.sleep(2.0)            # writes land after the failover
+        # writes land after the failover: the new epoch is published
+        # before it accepts commits (its storage rejoins first), so the
+        # writers run 2 s and then until one of theirs commits, at most
+        # 60 s more (virtual)
+        promoted = len(mk.history)
+        await asyncio.sleep(2.0)
+        for _ in range(240):
+            if len(mk.history) > promoted:
+                break
+            await asyncio.sleep(0.25)
         stop.set()
         await asyncio.gather(*writers)
         out["writes"] = (pre_kill, len(mk.history))
@@ -3568,6 +3577,16 @@ class OutstandingRequests:
             return f"coordinator.{self.role_methods['coordinator'][i][0]}"
         return "unknown"
 
+    @staticmethod
+    def roles_at(state: dict, port: int) -> list:
+        """The client-facing roles a published state places on the
+        localhost server at ``port``."""
+        return [f"{key}[{j}]" for key in STATE_ROLES
+                for j, x in enumerate(state.get(key) if isinstance(
+                    state.get(key), list) else [state.get(key)])
+                if isinstance(x, dict)
+                and tuple(x.get("addr", ())) == ("127.0.0.1", port)]
+
     def report(self, at: float) -> list:
         """Each request outstanding at ``at`` (unanswered then, or cut at
         it): its endpoint, the role and method it names, the epoch of the
@@ -3579,10 +3598,30 @@ class OutstandingRequests:
                 if sent <= at and (ended is None or ended >= at - 0.1)]
 
 
+def exit_state(pid: int) -> str:
+    """A killed process as /proc shows it: "gone", or its state letter
+    (Z once its exit has closed its files) and the sockets it still
+    holds open."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            st = [ln.split()[1] for ln in f if ln.startswith("State:")]
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return "gone"
+    socks = 0
+    for fd in fds:
+        try:
+            socks += os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                "socket:")
+        except OSError:
+            pass
+    return f"{''.join(st)}, {socks} sockets"
+
+
 async def published_epochs(coordinators) -> list:
     """The epoch each coordinator publishes now, asked one by one: None
     for one that does not answer within 5 s (the client's own refresh
-    waits for every coordinator, so it would hang on that one)."""
+    returns on a majority, so it does not show which one is silent)."""
     async def one(c):
         try:
             r = await asyncio.wait_for(c.open_database(), 5)
@@ -3800,7 +3839,8 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                     # from the kill, its outcome and its seconds
                     attempts = out.setdefault("failover_attempts", [])
                     try:
-                        os.kill(d.started()[leader][-1], signal.SIGKILL)
+                        victim = d.started()[leader][-1]
+                        os.kill(victim, signal.SIGKILL)
                         tk = time.perf_counter()
                         while True:
                             ta = time.perf_counter()
@@ -3818,7 +3858,10 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                                     "published_epochs":
                                         await published_epochs(
                                             cli_.coordinators),
-                                    "view_epoch": cli_.view.epoch})
+                                    "view_epoch": cli_.view.epoch,
+                                    "killed_server_roles": waits.roles_at(
+                                        cli_.view.state, leader),
+                                    "killed_process": exit_state(victim)})
                                 say(f"deployment: attempt {len(attempts)} "
                                     f"timed out: "
                                     f"{json.dumps(out['timed_out'][-1])}")
@@ -3969,9 +4012,12 @@ def check_deployment_phase(r: dict, card: str) -> str:
         f"through the CLI again {r['serve_after_restart_s']:.3f} s after the "
         f"kill ({card})")
     say(f"deployment: failover attempts [start s after the kill, outcome, "
-        f"s]: {json.dumps(r['failover_attempts'])}; timed-out attempts "
+        f"s]: {json.dumps(r['failover_attempts'])}, the first commit "
+        f"{r['failover_s']:.3f} s after the SIGKILL; timed-out attempts "
         f"(the requests each was awaiting: endpoint, role and method, the "
-        f"sending view's epoch; each coordinator's published epoch then) "
+        f"sending view's epoch; each coordinator's published epoch then; "
+        f"the roles the view placed on the killed server; the killed "
+        f"process's state) "
         f"{json.dumps(r.get('timed_out', []))}")
     say(f"deployment: status epoch {r['status']['epoch']}, available "
         f"{r['status']['database_available']}, resolver_device "

@@ -128,26 +128,79 @@ async def open_cluster(knobs: Knobs, transport: Transport,
     return RecoveredClusterView(knobs, transport, state)
 
 
+# A refresh returns once a majority of the coordinators has answered with
+# a state: a majority intersects the quorum that wrote the newest state,
+# so the newest of theirs is the newest of all, and a coordinator that
+# holds its connection without answering no longer holds up the client.
+# Off, the refresh waits for every coordinator, as the reference's does;
+# the parity tests turn it off to hold the simulator's schedule to the
+# reference's event for event.
+MAJORITY_REFRESH = True
+
+
+def _state_of(reply) -> dict | None:
+    """The cluster state a coordinator's ``open_database`` reply carries:
+    None for an error, an empty reply or a retired coordinator's forward;
+    the preserved state of a mid-change intent marker."""
+    if not isinstance(reply, dict) or not reply or "__moved_to__" in reply:
+        return None
+    if "__moving_to__" in reply:
+        # mid-change intent marker: the preserved state inside is the
+        # live cluster state — clients keep working through the move
+        # window
+        return reply.get("__value__") or None
+    return reply
+
+
+def _reply(task: asyncio.Task):
+    """A finished request's reply, or the exception it ended with."""
+    if task.cancelled():
+        return asyncio.CancelledError()
+    return task.exception() or task.result()
+
+
+async def _majority_replies(coordinators: list) -> list:
+    """Every coordinator's ``open_database`` reply (an exception for one
+    that failed), in the coordinators' order, as far as they came by the
+    time a majority had answered with a state, or all had answered; the
+    requests still out are cancelled and awaited."""
+    tasks = [asyncio.ensure_future(c.open_database()) for c in coordinators]
+    need = len(tasks) // 2 + 1
+    try:
+        pending, states = set(tasks), 0
+        while pending and states < need:
+            done, pending = await asyncio.wait(
+                pending, return_when=asyncio.FIRST_COMPLETED)
+            states += sum(_state_of(_reply(t)) is not None for t in done)
+        return [_reply(t) for t in tasks if t.done()]
+    finally:
+        rest = [t for t in tasks if not t.done()]
+        for t in rest:
+            t.cancel()
+        if rest:
+            await asyncio.wait(rest)
+        for t in rest:
+            _reply(t)           # retrieved: no "exception never retrieved"
+
+
 async def fetch_cluster_state(coordinators: list) -> dict:
-    replies = await asyncio.gather(
-        *(c.open_database() for c in coordinators), return_exceptions=True)
+    if MAJORITY_REFRESH:
+        replies = await _majority_replies(coordinators)
+    else:
+        replies = await asyncio.gather(
+            *(c.open_database() for c in coordinators),
+            return_exceptions=True)
     best: dict | None = None
     moved: list | None = None
-    for r in replies:
-        if isinstance(r, BaseException) or not r:
-            continue
-        if "__moved_to__" in r:
+    for reply in replies:
+        if isinstance(reply, dict) and "__moved_to__" in reply:
             # a retired coordinator: the quorum moved (changeQuorum);
             # surface the forward so the caller repoints
-            moved = r["__moved_to__"]
+            moved = reply["__moved_to__"]
             continue
-        if "__moving_to__" in r:
-            # mid-change intent marker: the preserved state inside is
-            # the live cluster state — clients keep working through the
-            # move window
-            r = r.get("__value__")
-            if not r:
-                continue
+        r = _state_of(reply)
+        if r is None:
+            continue
         if best is None or (r.get("epoch", 0), r.get("seq", 0)) > \
                 (best.get("epoch", 0), best.get("seq", 0)):
             best = r

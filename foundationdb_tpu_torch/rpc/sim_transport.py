@@ -127,9 +127,11 @@ class SimTransport(Transport):
         while True:
             death = self.network.death_event()
             waiter = asyncio.ensure_future(death.wait())
-            done, _ = await asyncio.wait(
-                {dispatch, waiter}, return_when=asyncio.FIRST_COMPLETED)
-            waiter.cancel()
+            try:
+                done, _ = await asyncio.wait(
+                    {dispatch, waiter}, return_when=asyncio.FIRST_COMPLETED)
+            finally:
+                waiter.cancel()         # a cancelled request leaves none
             if dispatch in done:
                 break
             if (self.network.is_dead(endpoint.address)

@@ -179,9 +179,14 @@ class TcpTransport(Transport):
         except (ConnectionError, OSError):
             peer.pending.pop(reply_id, None)
             raise ConnectionFailed() from None
-        if timeout is not None:
-            return await asyncio.wait_for(fut, timeout)
-        return await fut
+        try:
+            if timeout is not None:
+                return await asyncio.wait_for(fut, timeout)
+            return await fut
+        finally:
+            # a request cut by its caller (a timeout, a refresh that has
+            # its majority) is forgotten; a late reply finds no future
+            peer.pending.pop(reply_id, None)
 
     def one_way(self, endpoint: Endpoint, payload: Any) -> None:
         payload = self.attach_span(payload)

@@ -15,11 +15,16 @@ first commit (the test's shape).  With ``--deployment`` the cluster
 is phase 25's instead (``run_deployment``): the package's fdbmonitor
 over three coordinator servers and a worker-only fourth, the monitor
 SIGSTOPped from the kill until a commit lands, the attempts through a
-fresh CLI.
+fresh CLI.  ``--hold-leader`` adds what the H100 showed in phase 25
+(ROADMAP C3): the CLI reaches the leader's coordinator through a relay
+(``HeldRelay``) that, from the kill on, holds its connections open and
+answers nothing: on the card a refresh's request to the killed
+leader's coordinator went unanswered for 22 s.
 
     python tests/failover_attempts.py foundationdb_tpu [--fresh-cli]
     python tests/failover_attempts.py foundationdb_tpu_torch [--fresh-cli]
     python tests/failover_attempts.py PACKAGE --deployment [--stop-leader]
+    python tests/failover_attempts.py PACKAGE --deployment --hold-leader
 
 The port's servers run ``--device cpu``.  Run on a host with no card,
 each package takes 20-60 s.
@@ -141,6 +146,66 @@ def run(package: str, tmp: str, fresh_cli: bool = False) -> dict:
     return out
 
 
+class HeldRelay:
+    """A localhost TCP relay in front of one server, for this process's
+    client alone: bytes pass both ways until ``hold``; from then on every
+    connection, and every one it accepts later, stays open and passes
+    nothing.  That is a killed server whose connections outlive it: the
+    client's requests there are never answered and never fail."""
+
+    def __init__(self, port: int) -> None:
+        self.port = port
+        self.held = False
+        self.server = None
+        self.writers: list = []
+        self.tasks: set = set()
+
+    async def start(self) -> int:
+        """Listen on a free port; returns it."""
+        self.server = await asyncio.start_server(self._accept, "127.0.0.1",
+                                                 0)
+        return self.server.sockets[0].getsockname()[1]
+
+    def hold(self) -> None:
+        self.held = True
+
+    async def _accept(self, reader, writer) -> None:
+        self.writers.append(writer)
+        upstream = None
+        if not self.held:
+            try:
+                up_reader, upstream = await asyncio.open_connection(
+                    "127.0.0.1", self.port)
+            except OSError:
+                pass
+            else:
+                self.writers.append(upstream)
+                t = asyncio.ensure_future(self._pipe(up_reader, writer))
+                self.tasks.add(t)
+                t.add_done_callback(self.tasks.discard)
+        await self._pipe(reader, upstream)
+
+    async def _pipe(self, reader, writer) -> None:
+        """``reader``'s bytes to ``writer`` until ``reader`` ends; once
+        held, or with the other side gone, they are dropped, and neither
+        side is closed."""
+        try:
+            while data := await reader.read(1 << 16):
+                if writer is not None and not self.held:
+                    writer.write(data)
+                    await writer.drain()
+        except (ConnectionError, OSError):
+            pass
+
+    async def close(self) -> None:
+        self.server.close()
+        for w in self.writers:
+            w.close()
+        for t in list(self.tasks):
+            t.cancel()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
 def started(tmp: str) -> dict:
     """Each server's pids, in the order its monitor started them."""
     pids: dict = {}
@@ -163,8 +228,8 @@ def cli_exec(package: str, cf_path: str, script: str, env: dict) -> str:
         f"rc={p.returncode} {p.stderr[-600:]}"
 
 
-def run_deployment(package: str, tmp: str,
-                   stop_leader: bool = False) -> dict:
+def run_deployment(package: str, tmp: str, stop_leader: bool = False,
+                   hold_leader: bool = False) -> dict:
     """Phase 25's first lifetime up to its failover, for either package:
     the package's fdbmonitor over three coordinator servers and a
     worker-only fourth (``min_workers=3,replication=2``, the port's with
@@ -178,7 +243,10 @@ def run_deployment(package: str, tmp: str,
     ``stop_leader`` the leader's server is SIGSTOPped instead of killed
     (a process that holds its connections open and answers nothing) and
     SIGKILLed after the attempts, which then give up 120 s after the
-    stop.  This process's client trace goes to ``client.jsonl`` in
+    stop.  With ``hold_leader`` the CLI's cluster file names a
+    ``HeldRelay`` in front of the leader's coordinator (the first
+    coordinator's, where the worker-only server is the leader), held
+    from the kill on.  This process's client trace goes to ``client.jsonl`` in
     ``tmp``."""
     import chip_smoke as cs
     imp = lambda m: importlib.import_module(f"{package}.{m}")  # noqa: E731
@@ -203,7 +271,9 @@ def run_deployment(package: str, tmp: str,
         mon = subprocess.Popen([sys.executable, "-m", f"{package}.monitor",
                                 "-C", conf], cwd=REPO, env=env,
                                stdout=subprocess.DEVNULL, stderr=ef)
-    out: dict = {"package": package, "shape": "deployment", "attempts": []}
+    out: dict = {"package": package, "shape": "deployment",
+                 "stop_leader": stop_leader, "hold_leader": hold_leader,
+                 "attempts": []}
     prev = trace.get_trace_log()
     trace.set_trace_log(trace.TraceLog(path=os.path.join(tmp,
                                                          "client.jsonl")))
@@ -226,11 +296,6 @@ def run_deployment(package: str, tmp: str,
             CoordinatorClient = imp("rpc.stubs").CoordinatorClient
             TcpTransport = imp("rpc.tcp_transport").TcpTransport
             WLTOKEN_COORDINATOR = imp("rpc.transport").WLTOKEN_COORDINATOR
-            cli = await open_cli(cf_path, imp("runtime.knobs").Knobs(),
-                                 timeout=60)
-            waits = cs.OutstandingRequests(
-                cli.view.transport, lambda: cli.view,
-                imp("rpc.stubs").ROLE_METHODS, WLTOKEN_COORDINATOR)
             t = TcpTransport(NetworkAddress("127.0.0.1", 0))
             leader = None
             try:
@@ -248,9 +313,28 @@ def run_deployment(package: str, tmp: str,
                 await t.close()
             assert leader in ports, f"no leader found ({leader})"
             out["leader"] = ports.index(leader)
+            relay, cli_cf = None, cf_path
+            if hold_leader:
+                # the leader's coordinator; the first one where the
+                # worker-only server won the election
+                held = leader if leader in ports[:3] else ports[0]
+                out["held"] = ports.index(held)
+                relay = HeldRelay(held)
+                via = await relay.start()
+                cli_cf = os.path.join(tmp, "client.cluster")
+                ClusterFile("deploy", "t1", [
+                    NetworkAddress("127.0.0.1", via if p == held else p)
+                    for p in ports[:3]]).save(cli_cf)
+            cli = await open_cli(cli_cf, imp("runtime.knobs").Knobs(),
+                                 timeout=60)
+            waits = cs.OutstandingRequests(
+                cli.view.transport, lambda: cli.view,
+                imp("rpc.stubs").ROLE_METHODS, WLTOKEN_COORDINATOR)
             os.kill(mon.pid, signal.SIGSTOP)
             victim = started(tmp)[leader][-1]
             try:
+                if relay is not None:
+                    relay.hold()
                 os.kill(victim, signal.SIGSTOP if stop_leader
                         else signal.SIGKILL)
                 tk = time.perf_counter()
@@ -268,7 +352,10 @@ def run_deployment(package: str, tmp: str,
                             "awaiting": waits.report(time.perf_counter()),
                             "published_epochs": await cs.published_epochs(
                                 cli.coordinators),
-                            "view_epoch": cli.view.epoch})
+                            "view_epoch": cli.view.epoch,
+                            "killed_server_roles": waits.roles_at(
+                                cli.view.state, leader),
+                            "killed_process": cs.exit_state(victim)})
                     except Exception as e:  # noqa: BLE001 — an outcome
                         got, outcome = None, type(e).__name__
                     out["attempts"].append([round(ta - tk, 3), outcome,
@@ -288,6 +375,8 @@ def run_deployment(package: str, tmp: str,
                     os.kill(victim, signal.SIGKILL)
                 os.kill(mon.pid, signal.SIGCONT)
             await cli.view.transport.close()
+            if relay is not None:
+                await relay.close()
         asyncio.run(asyncio.wait_for(failover(), 600))
     finally:
         trace.get_trace_log().close()
@@ -308,7 +397,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     with tempfile.TemporaryDirectory() as tmp:
         if "--deployment" in argv:
-            r = run_deployment(argv[0], tmp, "--stop-leader" in argv)
+            r = run_deployment(argv[0], tmp, "--stop-leader" in argv,
+                               "--hold-leader" in argv)
         else:
             r = run(argv[0], tmp, "--fresh-cli" in argv)
         print(json.dumps(r), flush=True)

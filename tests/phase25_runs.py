@@ -1,0 +1,66 @@
+"""``chip_smoke.py`` phase 25 (the operator's deployment: fdbmonitor,
+three coordinator servers and a worker-only fourth, the CLI, the
+leader's SIGKILL with the monitor paused, the C ABI) run on its own,
+once for each mode named, each run's failover attempts printed.
+
+    python tests/phase25_runs.py majority,gathered,... [DEVICE]
+
+A mode sets the client's cluster-state refresh for the run:
+``majority`` is the port as it is (``core/cluster_client.py``
+returns once a majority of coordinators has answered), ``gathered``
+waits for every coordinator, as the JAX package does.  ``DEVICE`` is
+the servers' ``--device`` (``cuda``, the default, or ``cpu``).  One JSON
+line a run: the attempts ([start s after the kill, outcome, s]), the
+seconds from the kill to the first commit, what each timed-out attempt
+was awaiting, and phase 25's line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main(argv=None) -> int:
+    import chip_smoke as cs
+    from foundationdb_tpu_torch.core import cluster_client
+
+    argv = sys.argv[1:] if argv is None else argv
+    modes = argv[0].split(",")
+    dev = argv[1] if len(argv) > 1 else "cuda"
+    card = "cpu"
+    if dev == "cuda":
+        from foundationdb_tpu_torch.ops import kernels as K
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+        print(f"{card}; kernels built in {K.build():.3f} s", flush=True)
+    cs.CARD = card
+    cs._START[0] = time.perf_counter()
+    for i, mode in enumerate(modes):
+        cluster_client.MAJORITY_REFRESH = mode == "majority"
+        t = time.perf_counter()
+        try:
+            r = cs.deployment_phase(dev)
+            line = cs.check_deployment_phase(r, card)
+            rec = {"run": i, "mode": mode, "ok": True,
+                   "attempts": r["failover_attempts"],
+                   "failover_s": r["failover_s"],
+                   "timed_out": r.get("timed_out", []), "line": line}
+        except SystemExit:
+            rec = {"run": i, "mode": mode, "ok": False}
+        rec["seconds"] = time.perf_counter() - t
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

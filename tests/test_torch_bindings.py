@@ -92,5 +92,9 @@ def test_stack_machine_matches_reference(test, monkeypatch):
         monkeypatch.setattr(cls, "run", run)
     shown = hold_to_reference("test_tuple_bindingtester.py", test,
                               monkeypatch, port_edits=[STACK_TESTER])
-    assert len(stacks[REF]) == 4 and stacks[PORT] == stacks[REF]
+    # the stacks of the port's last run, the one held to the reference
+    # (hold_to_reference runs the port again, its refresh gathered, when
+    # the port as it is showed another schedule)
+    assert len(stacks[REF]) == 4 and len(stacks[PORT]) in (4, 8)
+    assert stacks[PORT][-4:] == stacks[REF]
     assert any(e[0] == "Transaction.get_range" for e in shown["transcript"])

@@ -125,11 +125,12 @@ def test_two_region_spec_recruits_its_log_routers():
 @pytest.mark.cuda
 def test_region_failover_on_the_card_matches_reference(monkeypatch):
     """The primary region's loss with the port's resolvers on the card:
-    what the scenario showed equals the reference's."""
+    what the scenario showed, with the client's refresh gathered
+    (``torch_parity.gathered``), equals the reference's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     f, t = "test_regions.py", "test_primary_region_loss_no_acked_data_lost"
     ref = run_reference_test(f, t, REF, monkeypatch)
     card = run_reference_test(f, t, PORT, monkeypatch,
-                              device=torch.device("cuda"))
+                              device=torch.device("cuda"), majority=False)
     assert_same(ref, card)

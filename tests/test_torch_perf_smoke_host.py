@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
                           buggify_off, held_equal, one_torch_thread,
-                          perf_smoke, stage_stats)
+                          perf_smoke, port_stage_stats, stage_stats)
 
 DIGESTS = (("backup.container", "keyspace_digest"),)
 
@@ -76,9 +76,10 @@ def test_backup_stage_matches_reference(monkeypatch):
 
 
 def test_scan_stage_matches_reference(monkeypatch):
-    ref, port = (stage_stats(p, "scan_path_seconds", monkeypatch)
-                 for p in (REF, PORT))
-    got = held_equal(ref, port, ("rows", "engine_runs", "chunk"))
+    keys = ("rows", "engine_runs", "chunk")
+    ref = stage_stats(REF, "scan_path_seconds", monkeypatch)
+    port = port_stage_stats(ref, "scan_path_seconds", monkeypatch, keys)
+    got = held_equal(ref, port, keys)
     assert min(got["engine_runs"]) >= 3
 
 

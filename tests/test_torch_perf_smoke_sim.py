@@ -26,34 +26,36 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_parity import (PORT, REF, api_version_reset,  # noqa: E402,F401
                           buggify_off, held_equal, one_torch_thread,
-                          stage_stats)
+                          port_stage_stats, stage_stats)
 
 INF = float("inf")
 
 
-def both(stage, mp, **kw):
-    return [stage_stats(p, stage, mp, **kw) for p in (REF, PORT)]
+def both(stage, mp, keys, **kw):
+    """The reference's stage and the port's (``port_stage_stats``), with
+    their ``keys`` held equal; returns what was held."""
+    ref = stage_stats(REF, stage, mp, **kw)
+    return held_equal(ref, port_stage_stats(ref, stage, mp, keys, **kw),
+                      keys)
 
 
 def test_observe_stage_matches_reference(monkeypatch):
-    ref, port = both("observe_seconds", monkeypatch,
-                     constants={"OBSERVE_OVERHEAD_CEIL": INF},
-                     record=(("tools.metrics_tool", "lag_series"),
-                             ("tools.metrics_tool", "recovery_report")))
-    got = held_equal(ref, port, ("sim_metrics_events", "cadence_mean_s",
-                                 "cluster_lag", "lag_series_tags",
-                                 "recovery_steps", "recorded"))
+    got = both("observe_seconds", monkeypatch,
+               ("sim_metrics_events", "cadence_mean_s", "cluster_lag",
+                "lag_series_tags", "recovery_steps", "recorded"),
+               constants={"OBSERVE_OVERHEAD_CEIL": INF},
+               record=(("tools.metrics_tool", "lag_series"),
+                       ("tools.metrics_tool", "recovery_report")))
     assert [f for f, _ in got["recorded"]] == ["lag_series",
                                                "recovery_report"]
 
 
 def test_scrub_stage_matches_reference(monkeypatch):
-    ref, port = both("scrub_seconds", monkeypatch,
-                     constants={"SCRUB_OVERHEAD_CEIL": INF},
-                     record=(("tools.metrics_tool", "scrub_report"),))
-    got = held_equal(ref, port, ("clean_pass_pages", "clean_pass_version",
-                                 "passes_to_detect", "mismatch_events",
-                                 "status_scrub", "recorded"))
+    got = both("scrub_seconds", monkeypatch,
+               ("clean_pass_pages", "clean_pass_version", "passes_to_detect",
+                "mismatch_events", "status_scrub", "recorded"),
+               constants={"SCRUB_OVERHEAD_CEIL": INF},
+               record=(("tools.metrics_tool", "scrub_report"),))
     assert got["mismatch_events"] == 1
 
 
@@ -65,15 +67,19 @@ LAYERS_KEYS = ("reads", "writes", "hit_rate", "clean_rows_checked",
 def test_layers_stage_matches_reference(monkeypatch):
     """The layer checker's scans read rows that the simulation cleared
     before the clears were durable: the reference serves them (ROADMAP
-    C), the port does not, so its checker reads fewer rows.  The
-    port as it is passes the stage's gates with every other stat and
-    ``metrics_tool``'s report equal (less the progress series, whose
-    checker samples count those rows); without its repair
-    (``torch_parity.unmasked``) every stat is."""
-    ref = stage_stats(REF, "layers_seconds", monkeypatch,
-                      record=(("tools.metrics_tool", "layers_report"),))
-    port = stage_stats(PORT, "layers_seconds", monkeypatch,
-                       record=(("tools.metrics_tool", "layers_report"),))
+    C), the port does not, so its checker reads fewer rows.  The port
+    as it is passes the stage's gates.  Its client refresh returning on
+    a majority of coordinators moves the simulator's schedule (ROADMAP
+    C3), so the comparisons run it gathered (``torch_parity.gathered``):
+    every other stat and ``metrics_tool``'s report are equal (less the
+    progress series, whose checker samples count those rows); without
+    the stale-read repair too (``torch_parity.unmasked``) every stat
+    is."""
+    rec = (("tools.metrics_tool", "layers_report"),)
+    ref = stage_stats(REF, "layers_seconds", monkeypatch, record=rec)
+    stage_stats(PORT, "layers_seconds", monkeypatch, record=rec)
+    port = stage_stats(PORT, "layers_seconds", monkeypatch, record=rec,
+                       majority=False)
     for st in (ref, port):
         # the report less its progress series, whose checker samples
         # count the rows read
@@ -83,6 +89,6 @@ def test_layers_stage_matches_reference(monkeypatch):
                            ("clean_rows_checked", "recorded")] + ["report"])
     assert 0 < port["clean_rows_checked"] < ref["clean_rows_checked"]
     unmasked = stage_stats(PORT, "layers_seconds", monkeypatch, mask=False,
-                           record=(("tools.metrics_tool", "layers_report"),))
+                           majority=False, record=rec)
     got = held_equal(ref, unmasked, LAYERS_KEYS)
     assert got["hit_rate"] >= 0.8

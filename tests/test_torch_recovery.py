@@ -11,8 +11,11 @@ document's deterministic fields.  Under the ``cpp`` backend on both
 sides, a fresh process of each package writes the same trace.
 
 The child half runs as ``python tests/test_torch_recovery.py --child
-<package> <trace-path>``: one seeded recovery of that package that
-prints the sha256 of its trace.
+<package> <trace-path> <kills>``: one seeded recovery of that package
+that prints the sha256 of its trace.  The port's child runs its client
+refresh gathered, as ``torch_parity.gathered`` does: a refresh that
+returns on a majority of coordinators (ROADMAP C3) moves the
+simulator's schedule.
 """
 
 from __future__ import annotations
@@ -497,6 +500,9 @@ _SEED = 2718
 def _child(name: str, path: str, kills: int) -> None:
     sys.path.insert(0, _REPO)
     P = package(name)
+    if name == PORT:
+        from foundationdb_tpu_torch.core import cluster_client
+        cluster_client.MAJORITY_REFRESH = False
     log = P.trace.TraceLog(path=path, min_severity=P.trace.Severity.DEBUG)
     P.trace.set_trace_log(log)
 

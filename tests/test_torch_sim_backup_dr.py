@@ -66,8 +66,9 @@ def test_backup_dr_chaos_spec_matches_reference(monkeypatch):
 @pytest.mark.cuda
 def test_backup_dr_chaos_spec_on_the_card_matches_reference(monkeypatch):
     """The spec with every resolver and read mirror on the card, the DR
-    destination's too: the assertions as it is, and without the retire,
-    what it showed equals the reference's."""
+    destination's too: the assertions as it is, and without the retire
+    and with the client's refresh gathered, what it showed equals the
+    reference's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     made = destinations(monkeypatch)
@@ -75,7 +76,7 @@ def test_backup_dr_chaos_spec_on_the_card_matches_reference(monkeypatch):
     ref = run_reference_test(FILE, TEST, REF, monkeypatch)
     run_reference_test(FILE, TEST, PORT, monkeypatch, device=cuda)
     card = run_reference_test(FILE, TEST, PORT, monkeypatch, device=cuda,
-                              retire=False)
+                              retire=False, majority=False)
     assert_same(ref, card)
     assert all(r.backend.cs.device.type == "cuda"
                for dest in made for r in dest.resolvers)

@@ -10,8 +10,13 @@ the mode's markers in the trace.  The port's half runs the reference's
 source re-rooted at the port (``torch_parity.reference_module``) with
 ``_THIS`` pointed at a child written under the test's directory:
 ``chip_smoke.sim_child_source``, the same file re-rooted at the port
-with its simulated cluster on the CPU (the kernels' plain versions).
-``chip_smoke.py`` phase 31 runs that child on the card.
+with its simulated cluster on the CPU (the kernels' plain versions),
+and its client refresh gathered (``gathered_child_source``, as
+``torch_parity.gathered`` does in process): the port's refresh returns
+once a majority of coordinators has answered (ROADMAP C3), and the
+cancelled request to the last one draws nothing more from the
+simulated network, so every later event of the port as it is moves.
+``chip_smoke.py`` phase 31 runs that child, as it is, on the card.
 
 Then every child run of the port is held to the reference's run at the
 same place: the same mode, the same printed event counts, and the two
@@ -31,16 +36,19 @@ value differs between the packages by design or by a repair:
   tests/test_torch_recovery.py).
 
 A failure names the first event that differs beyond them.  So the
-port's digest differs from the reference's in every mode that emits
-either gauge with a nonzero value, and equals it in the others
-(``metrics_off``).  The port's digests of phase 31's modes must equal
-``chip_smoke.SIM_DIGESTS``, the digests the card's runs are held to.
+gathered port's digest differs from the reference's in every mode that
+emits either gauge with a nonzero value, and equals it in the others
+(``metrics_off``).  The port as it is, in phase 31's own child
+(``python chip_smoke.py --sim-mode MODE TRACE cpu``), must hash each
+of phase 31's modes to ``chip_smoke.SIM_DIGESTS``, the digests the
+card's runs are held to.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -78,6 +86,17 @@ LEFT_OUT = {"ResolverMetrics": {"WindowOccupancy"},
             "StorageMetrics": {"DeviceReadStaleness"}}
 
 
+def gathered_child_source() -> str:
+    """The port's child (``chip_smoke.sim_child_source``) with its client
+    refresh waiting for every coordinator, as the reference's does."""
+    anchor = "    sys.path.insert(0, _REPO)\n"
+    src = cs.sim_child_source(REPO)
+    assert src.count(anchor) == 1
+    return src.replace(anchor, anchor + (
+        "    from foundationdb_tpu_torch.core import cluster_client\n"
+        "    cluster_client.MAJORITY_REFRESH = False\n"))
+
+
 def child_runs(name: str, file: str, test: str, mp, tmp) -> list:
     """Package ``name``'s run of the reference's ``file::test``, its own
     assertions included; returns each child it ran, in order: (tag,
@@ -94,7 +113,7 @@ def child_runs(name: str, file: str, test: str, mp, tmp) -> list:
         mod._run_child = recording
         if name == PORT:
             child = tmp / "port_child.py"
-            child.write_text(cs.sim_child_source(REPO))
+            child.write_text(gathered_child_source())
             mod._THIS = str(child)
         return {"tmp_path": tmp}
     run_reference_test(file, test, name, mp, args=args)
@@ -133,8 +152,23 @@ def test_reference_sim_determinism(file, test, monkeypatch,
         assert r[1:] == p[1:], f"{mode} ({tag}): event counts {r} {p}"
         assert first_divergence(rt, pt) is None, \
             f"{mode} ({tag}): first divergent event {first_divergence(rt, pt)}"
-        if mode in cs.SIM_DIGESTS:
-            assert p[0] == cs.SIM_DIGESTS[mode], (mode, p[0])
+
+
+@pytest.mark.parametrize("mode", cs.SIM_MODES)
+def test_phase_31_child_hashes_to_the_held_digest(mode, tmp_path):
+    """Phase 31's child for ``mode`` on the CPU, the port as it is: the
+    trace's SHA-256 is ``chip_smoke.SIM_DIGESTS[mode]``, and every
+    kernel call it made equals its plain version."""
+    p = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--sim-mode",
+         mode, str(tmp_path / "trace.jsonl"), "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
+    assert p.returncode == 0, p.stderr[-3000:]
+    digest_line, calls_line = p.stdout.strip().splitlines()[-2:]
+    assert digest_line.split()[0] == cs.SIM_DIGESTS[mode], digest_line
+    calls = json.loads(calls_line)["calls"]
+    assert not any(err for _, err in calls.values()), calls
 
 
 def test_phase_31_modes_are_held_by_part_one():

@@ -3,7 +3,9 @@ package's (``tools/``).
 
 - The seed farm at ``--jobs 2 --device cpu`` over seeds 0 and 1: each
   seed's result (the child ``sim.run_one``'s last line) and the failure
-  buckets equal to the reference farm's.
+  buckets equal to the reference farm's, each child's client refresh
+  gathered (``gathered_children``, as ``torch_parity.gathered`` does in
+  process; ROADMAP C3).
 - tests/test_trace_tool.py's and tests/test_metrics_tool.py's scenarios
   as written on both packages (``torch_parity.hold_to_reference``), the
   port's with the port's trace and metrics tools and its simulated
@@ -27,8 +29,10 @@ import inspect
 import json
 import os
 import pathlib
+import subprocess
 import sys
 import tempfile
+import types
 
 import pytest
 import torch
@@ -56,6 +60,31 @@ def _summary(capsys) -> dict:
     return json.loads(out[out.index("{"):])
 
 
+# sim.run_one as ``python -m`` runs it, with the client's refresh waiting
+# for every coordinator, as the reference's does
+GATHERED_RUN_ONE = (
+    "import runpy\n"
+    "from foundationdb_tpu_torch.core import cluster_client\n"
+    "cluster_client.MAJORITY_REFRESH = False\n"
+    "runpy.run_module('foundationdb_tpu_torch.sim.run_one', "
+    "run_name='__main__')\n")
+
+
+def gathered_children(mp, farm) -> None:
+    """The port's seed farm ``farm`` starting each child as
+    ``GATHERED_RUN_ONE``: a refresh that returns on a majority of
+    coordinators moves the simulator's schedule, so the children's
+    results are held to the reference's with it gathered."""
+    module = ["-m", "foundationdb_tpu_torch.sim.run_one"]
+
+    def run(cmd, **kw):
+        assert cmd[1:3] == module, cmd
+        return subprocess.run([cmd[0], "-c", GATHERED_RUN_ONE, *cmd[3:]],
+                              **kw)
+    mp.setattr(farm, "subprocess", types.SimpleNamespace(
+        run=run, TimeoutExpired=subprocess.TimeoutExpired))
+
+
 def test_seed_farm_matches_reference(tmp_path, monkeypatch, capsys):
     ref_farm = reference_tool("seed_farm")
     ref_runs = []
@@ -72,6 +101,7 @@ def test_seed_farm_matches_reference(tmp_path, monkeypatch, capsys):
     ref = _summary(capsys)
 
     from foundationdb_tpu_torch.tools import seed_farm
+    gathered_children(monkeypatch, seed_farm)
     out = tmp_path / "seeds.jsonl"
     seed_farm.main(["--seeds", "2", "--jobs", "2", "--device", "cpu",
                     "--out", str(out)])
