@@ -281,6 +281,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import gc
 import json
@@ -3602,12 +3603,52 @@ def exit_state(pid: int) -> str:
     """A killed process as /proc shows it: "gone", or its state letter
     (Z once its exit has closed its files) and the sockets it still
     holds open."""
+    st, _, socks = process_files(pid)
+    return st if st == "gone" else f"{st}, {socks} sockets"
+
+
+TCP_STATES = {1: "ESTABLISHED", 2: "SYN_SENT", 3: "SYN_RECV", 4: "FIN_WAIT1",
+              5: "FIN_WAIT2", 6: "TIME_WAIT", 7: "CLOSE", 8: "CLOSE_WAIT",
+              9: "LAST_ACK", 10: "LISTEN", 11: "CLOSING"}
+
+
+def tcp_sockets() -> list:
+    """``/proc/net/tcp``'s sockets: (local port, remote port, state,
+    inode) each."""
+    out = []
+    with open("/proc/net/tcp") as f:
+        next(f)
+        for ln in f:
+            p = ln.split()
+            out.append((int(p[1].rsplit(":", 1)[1], 16),
+                        int(p[2].rsplit(":", 1)[1], 16),
+                        TCP_STATES.get(int(p[3], 16), p[3]), int(p[9])))
+    return out
+
+
+def socket_inodes() -> set:
+    """The inodes of the sockets this process holds open."""
+    out = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            link = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            out.add(int(link[8:-1]))
+    return out
+
+
+def process_files(pid: int) -> list:
+    """[state letter, open files, sockets] of process ``pid``, or
+    ["gone", 0, 0]."""
     try:
         with open(f"/proc/{pid}/status") as f:
-            st = [ln.split()[1] for ln in f if ln.startswith("State:")]
+            st = "".join(ln.split()[1] for ln in f
+                         if ln.startswith("State:"))
         fds = os.listdir(f"/proc/{pid}/fd")
     except OSError:
-        return "gone"
+        return ["gone", 0, 0]
     socks = 0
     for fd in fds:
         try:
@@ -3615,7 +3656,125 @@ def exit_state(pid: int) -> str:
                 "socket:")
         except OSError:
             pass
-    return f"{''.join(st)}, {socks} sockets"
+    return [st, len(fds), socks]
+
+
+def _count(states) -> dict:
+    return dict(sorted(collections.Counter(states).items()))
+
+
+class KillWatch:
+    """From a killed server's SIGKILL on, every ``every`` seconds on a
+    thread of its own, reading ``/proc`` only: the killed process's
+    state, open files and sockets (``proc``); whether ``/proc/net/tcp``
+    still has a LISTEN entry for its port (``listen``); the states of
+    every socket of the machine's network namespace connected to that
+    port (``to_port``: the other processes' connections, a live proxy's
+    to the killed sequencer among them) and of those at it
+    (``at_port``: the killed side's own); and the states of this
+    process's sockets (matched by inode) to each of ``ports``
+    (``mine``).  ``rows`` keeps the first sample and every one in which
+    anything but its time changed, with its seconds since the kill."""
+
+    def __init__(self, pid: int, port: int, ports, every: float = 0.1,
+                 extra=None) -> None:
+        import threading
+        self.pid, self.port, self.ports = pid, port, set(ports)
+        self.extra = extra            # () -> a value kept in each row
+        self.t0 = time.perf_counter()
+        self.rows: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(every,),
+                                        daemon=True)
+        self._thread.start()
+
+    def sample(self, ports=None) -> dict:
+        mine = socket_inodes()
+        table = tcp_sockets()
+        row = {"proc": process_files(self.pid),
+               "listen": any(lp == self.port and st == "LISTEN"
+                             for lp, _, st, _ in table),
+               "to_port": _count(st for _, rp, st, _ in table
+                                 if rp == self.port),
+               "at_port": _count(st for lp, _, st, _ in table
+                                 if lp == self.port and st != "LISTEN"),
+               "mine": {str(p): sorted(st for _, rp, st, ino in table
+                                       if rp == p and ino in mine)
+                        for p in sorted(ports or self.ports)}}
+        if self.extra is not None:
+            row["extra"] = self.extra()
+        return row
+
+    def _run(self, every: float) -> None:
+        last = None
+        while not self._stop.is_set():
+            row = self.sample()
+            if row != last:
+                self.rows.append(
+                    {"t": round(time.perf_counter() - self.t0, 2), **row})
+                last = row
+            self._stop.wait(every)
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join()
+        return self.rows
+
+    def at(self, ports) -> dict:
+        """A sample now, for a timed-out attempt, with this process's
+        sockets to each of ``ports`` (the awaited requests' addresses);
+        and the first 80 change rows."""
+        return {"t": round(time.perf_counter() - self.t0, 2),
+                **self.sample(set(ports)), "changes": self.rows[:80]}
+
+
+def watch_summary(rows: list) -> dict:
+    """When, in seconds after the kill, a ``KillWatch`` first saw the
+    killed process a zombie (the paused monitor does not reap it) and
+    holding no sockets; its port's listener gone; no socket left at its
+    port; and no ESTABLISHED socket left to it (None: not within the
+    watch)."""
+    def first(pred):
+        return next((r["t"] for r in rows if pred(r)), None)
+    return {"zombie_s": first(lambda r: r["proc"][0].startswith("Z")),
+            "no_sockets_s": first(lambda r: r["proc"][2] == 0),
+            "listen_gone_s": first(lambda r: not r["listen"]),
+            "at_port_empty_s": first(lambda r: not r["at_port"]),
+            "to_port_established_gone_s": first(
+                lambda r: "ESTABLISHED" not in r["to_port"]),
+            "rows": len(rows)}
+
+
+def connection_timeouts(tmp: str) -> list:
+    """The ``ConnectionTimeout`` events (a TCP connection cut after its
+    peer's silence, ``rpc/tcp_transport.py``) in a deployment's server
+    logs and in ``client.jsonl`` under ``tmp``: [file, peer, phase
+    ("dial" or "connected"), silent s, pending requests] each."""
+    out = []
+    for root, _, files in os.walk(tmp):
+        for name in sorted(files):
+            if not (name.startswith("fdbserver.") or name == "client.jsonl"):
+                continue
+            with open(os.path.join(root, name), errors="replace") as f:
+                for ln in f:
+                    if '"ConnectionTimeout"' not in ln:
+                        continue
+                    try:
+                        ev = json.loads(ln)
+                    except ValueError:
+                        continue
+                    out.append([os.path.relpath(os.path.join(root, name),
+                                                tmp), ev.get("PeerAddr"),
+                                ev.get("Phase"), ev.get("SilentSeconds"),
+                                ev.get("Pending")])
+    return out
+
+
+def awaited_ports(report: list) -> list:
+    """The ports of the endpoints an ``OutstandingRequests.report``
+    names."""
+    return sorted({int(r["endpoint"].split("/")[0].rsplit(":", 1)[1])
+                   for r in report})
 
 
 async def published_epochs(coordinators) -> list:
@@ -3838,10 +3997,12 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                     # every attempt of the set after the kill: its start
                     # from the kill, its outcome and its seconds
                     attempts = out.setdefault("failover_attempts", [])
+                    watch = None
                     try:
                         victim = d.started()[leader][-1]
                         os.kill(victim, signal.SIGKILL)
                         tk = time.perf_counter()
+                        watch = KillWatch(victim, leader, d.ports)
                         while True:
                             ta = time.perf_counter()
                             try:
@@ -3851,10 +4012,12 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                                     else str(got)[:120]
                             except asyncio.TimeoutError:
                                 got = outcome = "timeout"
+                                report = waits.report(time.perf_counter())
                                 out.setdefault("timed_out", []).append({
                                     "attempt": len(attempts),
-                                    "awaiting": waits.report(
-                                        time.perf_counter()),
+                                    "awaiting": report,
+                                    "sockets": watch.at(
+                                        awaited_ports(report)),
                                     "published_epochs":
                                         await published_epochs(
                                             cli_.coordinators),
@@ -3884,6 +4047,8 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                             await asyncio.sleep(0.25)
                     finally:
                         os.kill(d.mon.pid, signal.SIGCONT)
+                        if watch is not None:
+                            out["kill_watch"] = watch_summary(watch.stop())
                     out["acked"][b"after"] = b"failover"
                     out["native"] = await binding_observations_native(
                         cli_, b"n/")
@@ -3964,7 +4129,7 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                     fail(f"the CLI's writes: {got}")
                 sup[b"sup/first"] = b"1"
                 out["sup_acked"] = sup
-                victim = d.ports[3]
+                victim = out["sup_victim"] = d.ports[3]
                 os.kill(d.started()[victim][-1], signal.SIGKILL)
                 t1 = time.perf_counter()
                 while len(d.started().get(victim, [])) < 2:
@@ -3980,6 +4145,7 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
             finally:
                 out["supervision"] = d.stop()
         finally:
+            out["connection_timeouts"] = connection_timeouts(tmp)
             get_trace_log().close()
             set_trace_log(prev_log)
             if apps is not None:
@@ -4019,6 +4185,16 @@ def check_deployment_phase(r: dict, card: str) -> str:
         f"the roles the view placed on the killed server; the killed "
         f"process's state) "
         f"{json.dumps(r.get('timed_out', []))}")
+    say(f"deployment: connections cut after their peer's silence "
+        f"(ConnectionTimeout: file, peer, phase, silent s, pending; the "
+        f"killed leader 127.0.0.1:{r['leader']}, the killed worker-only "
+        f"127.0.0.1:{r['sup_victim']}): "
+        f"{json.dumps(r['connection_timeouts'])}")
+    if "kill_watch" in r:
+        say(f"deployment: from the leader's SIGKILL, seconds until the "
+            f"killed process was first seen a zombie, holding no "
+            f"sockets; its listener gone; no socket at its port; no "
+            f"ESTABLISHED socket to it: {json.dumps(r['kill_watch'])}")
     say(f"deployment: status epoch {r['status']['epoch']}, available "
         f"{r['status']['database_available']}, resolver_device "
         f"{json.dumps(dv)}; C smoke rc {rc} `{so}' in {r['c_smoke_s']:.3f} s; "
@@ -4609,7 +4785,10 @@ def perf_smoke_phase(dev) -> dict:
     during its run and held to the plain version.  The mesh's run is
     not recorded (its routed/broadcast ratio is a wall-clock gate that
     copies on the stream would tilt): its routed side runs once more,
-    recorded."""
+    recorded.  The mesh's ratio pools three alternating routed/broadcast
+    pairs after one unmeasured routed run (``perf_smoke.mesh_seconds``);
+    each side's window, warmup and clients and the floor are the
+    reference's."""
     import io
 
     from foundationdb_tpu_torch.bench.multi_resolver import \

@@ -296,7 +296,7 @@ class Cli:
 async def open_cli(cluster_file: str, knobs: Knobs,
                    timeout: float = 30.0, tls=None) -> Cli:
     cf = ClusterFile.load(cluster_file)
-    t = TcpTransport(NetworkAddress("127.0.0.1", 0), tls=tls)
+    t = TcpTransport(NetworkAddress("127.0.0.1", 0), tls=tls, knobs=knobs)
 
     from .rpc.stubs import make_coordinator_stubs
 

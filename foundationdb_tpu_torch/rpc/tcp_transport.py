@@ -8,6 +8,26 @@ shared CA (mutual TLS, the reference's fdb_tls_* model).
 Frame: [u32 len][u32 crc32][u64 token][u64 reply_id][u8 kind][payload].
 kind: 0=request, 1=reply-ok, 2=reply-error (payload = varint error code),
 3=one-way.
+
+A connection is watched while requests to its peer are pending, as
+FlowTransport's connection monitor watches it.  Whenever nothing has been
+read from the peer for ``PING_INTERVAL``, the transport pings the peer's
+``WLTOKEN_PING`` over the same connection; a ping's reply, like any other
+frame read, is a sign of life.  A peer silent for ``2 * FAILURE_TIMEOUT``
+loses the connection, and its pending requests fail with
+``RequestMaybeDelivered`` (the next request dials anew); a dial that has
+not connected within that window, TLS handshake included, fails with
+``ConnectionFailed``.  The window is twice the failure monitor's: a
+connection is cut only after every process's ``FailureMonitor`` would
+have marked the peer failed, and so after the cluster controller would
+have started a recovery without it; it is also the bound coordination
+puts on its own calls.  A peer that answers its pings keeps its requests
+however long they wait (watches, long polls, ``wait_state``, batching).
+The ping goes over the same connection because that is the path the
+requests wait on: a new connection could reach a listener that accepts
+for a process that no longer answers, and would tell nothing of a
+connection that gets no reset; it also adds no accepted connection on
+the peer.
 """
 
 from __future__ import annotations
@@ -21,7 +41,9 @@ import zlib
 from typing import Any
 
 from ..runtime.errors import ConnectionFailed, RequestMaybeDelivered
-from .transport import Endpoint, NetworkAddress, Transport
+from ..runtime.knobs import Knobs
+from ..runtime.trace import Severity, TraceEvent
+from .transport import Endpoint, NetworkAddress, Transport, WLTOKEN_PING
 from .wire import decode, encode
 
 _HDR = struct.Struct("<IIQQB")
@@ -58,13 +80,20 @@ class _Peer:
         # in-flight requests *to this peer*; a peer failure must only fail
         # its own requests, never those pending on other connections
         self.pending: dict[int, asyncio.Future] = {}
+        # loop time of the last frame read, or of the watch's start
+        self.heard = 0.0
+        self.monitor: asyncio.Task | None = None
 
 
 class TcpTransport(Transport):
     def __init__(self, address: NetworkAddress,
-                 tls: TlsConfig | None = None) -> None:
+                 tls: TlsConfig | None = None,
+                 knobs: Knobs | None = None) -> None:
         super().__init__(address)
         self.tls = tls
+        knobs = knobs or Knobs()
+        self._ping_every = knobs.PING_INTERVAL
+        self._silence = 2 * knobs.FAILURE_TIMEOUT
         self._server: asyncio.AbstractServer | None = None
         self._peers: dict[NetworkAddress, _Peer] = {}
         self._reply_ids = itertools.count(1)
@@ -84,21 +113,27 @@ class TcpTransport(Transport):
         finally:
             self._inbound.discard(peer)
 
-    def _spawn(self, coro, name: str) -> None:
+    def _spawn(self, coro, name: str) -> asyncio.Task:
         t = asyncio.get_running_loop().create_task(coro, name=name)
         self._tasks.add(t)
         t.add_done_callback(self._tasks.discard)
+        return t
 
     async def _get_peer(self, addr: NetworkAddress) -> _Peer:
         peer = self._peers.get(addr)
         if peer is not None and not peer.writer.is_closing():
             return peer
         try:
-            reader, writer = await asyncio.open_connection(
+            # a dial, the TLS handshake included, has the same window
+            reader, writer = await asyncio.wait_for(asyncio.open_connection(
                 addr.ip, addr.port,
                 ssl=self.tls.client_context() if self.tls else None,
                 server_hostname=addr.ip if self.tls
-                and self.tls.verify_hostname else None)
+                and self.tls.verify_hostname else None), self._silence)
+        except asyncio.TimeoutError:     # before OSError, its base class
+            self._timed_out(addr, "dial", self._silence, 0)
+            raise ConnectionFailed(f"no connection to {addr} within "
+                                   f"{self._silence} s") from None
         except (OSError, ssl_mod.SSLError) as e:
             raise ConnectionFailed(str(e)) from None
         peer = _Peer(reader, writer)
@@ -112,11 +147,13 @@ class TcpTransport(Transport):
         return _HDR.pack(len(payload), crc, token, reply_id, kind) + payload
 
     async def _read_loop(self, peer: _Peer, addr: NetworkAddress | None) -> None:
+        loop = asyncio.get_running_loop()
         try:
             while True:
                 hdr = await peer.reader.readexactly(_HDR.size)
                 ln, crc, token, reply_id, kind = _HDR.unpack(hdr)
                 payload = await peer.reader.readexactly(ln)
+                peer.heard = loop.time()
                 if zlib.crc32(payload) != crc:
                     raise ConnectionError("checksum mismatch")
                 if kind == 0:        # request
@@ -125,7 +162,7 @@ class TcpTransport(Transport):
                 elif kind == 3:      # one-way
                     self._spawn(self._serve(peer, token, 0, payload),
                                 "tcp-oneway-serve")
-                else:                # reply
+                else:                # reply (a ping's finds no future)
                     fut = peer.pending.pop(reply_id, None)
                     if fut is not None and not fut.done():
                         if kind == 1:
@@ -165,13 +202,52 @@ class TcpTransport(Transport):
         except (ConnectionError, OSError):
             pass
 
+    @staticmethod
+    def _timed_out(addr: NetworkAddress, phase: str, silent: float,
+                   pending: int) -> None:
+        TraceEvent("ConnectionTimeout", Severity.WARN) \
+            .detail("PeerAddr", str(addr)).detail("Phase", phase) \
+            .detail("SilentSeconds", round(silent, 3)) \
+            .detail("Pending", pending).log()
+
+    async def _connection_monitor(self, peer: _Peer,
+                                  addr: NetworkAddress) -> None:
+        """While requests to ``peer`` are pending: a ping whenever nothing
+        has been read from it for ``PING_INTERVAL``, and the connection
+        aborted once it has been silent for the window, which fails the
+        pending requests through the read loop."""
+        loop = asyncio.get_running_loop()
+        slept_at = loop.time()
+        while peer.pending and not peer.writer.is_closing():
+            now = loop.time()
+            silent = now - peer.heard
+            # a late tick is this process's own stall, not the peer's: no
+            # ping went out and its frames may wait unread, so the cut
+            # waits a tick
+            late = now - slept_at > 2 * self._ping_every
+            if silent >= self._silence and not late:
+                self._timed_out(addr, "connected", silent, len(peer.pending))
+                peer.writer.transport.abort()
+                return
+            if silent >= self._ping_every:
+                peer.writer.write(self._frame(
+                    WLTOKEN_PING, next(self._reply_ids), 0, encode(b"ping")))
+            slept_at = loop.time()
+            await asyncio.sleep(self._ping_every)
+
     async def request(self, endpoint: Endpoint, payload: Any,
                       timeout: float | None = None) -> Any:
         payload = self.attach_span(payload)   # sampled ctx rides the frame
         peer = await self._get_peer(endpoint.address)
         reply_id = next(self._reply_ids)
-        fut = asyncio.get_running_loop().create_future()
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
         peer.pending[reply_id] = fut
+        if peer.monitor is None or peer.monitor.done():
+            peer.heard = loop.time()
+            peer.monitor = self._spawn(
+                self._connection_monitor(peer, endpoint.address),
+                f"tcp-monitor-{endpoint.address}")
         try:
             peer.writer.write(self._frame(endpoint.token, reply_id, 0,
                                           encode(payload)))

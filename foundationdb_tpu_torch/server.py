@@ -88,7 +88,7 @@ async def run_server(cluster_file: str, listen: str, spec: ClusterConfigSpec,
     ip, _, port = listen.rpartition(":")
     addr = NetworkAddress(ip, int(port))
 
-    transport = TcpTransport(addr, tls=tls)
+    transport = TcpTransport(addr, tls=tls, knobs=knobs)
     await transport.listen()
 
     # outbound-only client transports: a unique address identity each, no
@@ -97,7 +97,8 @@ async def run_server(cluster_file: str, listen: str, spec: ClusterConfigSpec,
 
     def client_transport() -> TcpTransport:
         return TcpTransport(
-            NetworkAddress(ip, int(port) * 1000 + next(counter)), tls=tls)
+            NetworkAddress(ip, int(port) * 1000 + next(counter)), tls=tls,
+            knobs=knobs)
 
     # EVERY process serves a coordination register (idle unless the
     # connection string names its address) so `coordinators` can move the

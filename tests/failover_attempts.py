@@ -19,12 +19,17 @@ fresh CLI.  ``--hold-leader`` adds what the H100 showed in phase 25
 (ROADMAP C3): the CLI reaches the leader's coordinator through a relay
 (``HeldRelay``) that, from the kill on, holds its connections open and
 answers nothing: on the card a refresh's request to the killed
-leader's coordinator went unanswered for 22 s.
+leader's coordinator went unanswered for 22 s.  ``--stop-roles``
+SIGSTOPs, instead of killing the leader, a server other than the
+leader's that holds epoch 1's sequencer or a GRV proxy (ROADMAP C5): a
+peer that keeps its sockets open and answers nothing, which the client's
+GRV awaits, directly or through a live proxy.
 
     python tests/failover_attempts.py foundationdb_tpu [--fresh-cli]
     python tests/failover_attempts.py foundationdb_tpu_torch [--fresh-cli]
     python tests/failover_attempts.py PACKAGE --deployment [--stop-leader]
     python tests/failover_attempts.py PACKAGE --deployment --hold-leader
+    python tests/failover_attempts.py PACKAGE --deployment --stop-roles
 
 The port's servers run ``--device cpu``.  Run on a host with no card,
 each package takes 20-60 s.
@@ -228,8 +233,16 @@ def cli_exec(package: str, cf_path: str, script: str, env: dict) -> str:
         f"rc={p.returncode} {p.stderr[-600:]}"
 
 
+class NoTarget(RuntimeError):
+    """``--stop-roles`` found the sequencer and the GRV proxies on the
+    leader's server (the controller places them on the live worker with
+    the lowest address, and the lowest candidate id, its port, tends to
+    win the election)."""
+
+
 def run_deployment(package: str, tmp: str, stop_leader: bool = False,
-                   hold_leader: bool = False) -> dict:
+                   hold_leader: bool = False,
+                   stop_roles: bool = False) -> dict:
     """Phase 25's first lifetime up to its failover, for either package:
     the package's fdbmonitor over three coordinator servers and a
     worker-only fourth (``min_workers=3,replication=2``, the port's with
@@ -246,8 +259,14 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
     stop.  With ``hold_leader`` the CLI's cluster file names a
     ``HeldRelay`` in front of the leader's coordinator (the first
     coordinator's, where the worker-only server is the leader), held
-    from the kill on.  This process's client trace goes to ``client.jsonl`` in
-    ``tmp``."""
+    from the kill on.  With ``stop_roles`` the server SIGSTOPped is not
+    the leader's but one that the CLI's view places epoch 1's sequencer
+    on, else a GRV proxy (``stopped``: its index; ``roles``: every
+    server's client-facing roles), continued and SIGKILLed after the
+    attempts, which give up 30 s after the stop: the reference's first
+    attempt times out.  Each timed-out attempt also records the socket
+    states a ``chip_smoke.KillWatch`` on the victim saw.  This process's
+    client trace goes to ``client.jsonl`` in ``tmp``."""
     import chip_smoke as cs
     imp = lambda m: importlib.import_module(f"{package}.{m}")  # noqa: E731
     ClusterFile = imp("core.cluster_file").ClusterFile
@@ -273,7 +292,7 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
                                stdout=subprocess.DEVNULL, stderr=ef)
     out: dict = {"package": package, "shape": "deployment",
                  "stop_leader": stop_leader, "hold_leader": hold_leader,
-                 "attempts": []}
+                 "stop_roles": stop_roles, "attempts": []}
     prev = trace.get_trace_log()
     trace.set_trace_log(trace.TraceLog(path=os.path.join(tmp,
                                                          "client.jsonl")))
@@ -330,14 +349,28 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
             waits = cs.OutstandingRequests(
                 cli.view.transport, lambda: cli.view,
                 imp("rpc.stubs").ROLE_METHODS, WLTOKEN_COORDINATOR)
+            target = leader
+            if stop_roles:
+                roles = {p: waits.roles_at(cli.view.state, p) for p in ports}
+                out["roles"] = {ports.index(p): r for p, r in roles.items()}
+                held = [p for want in ("sequencer", "grv_proxies")
+                        for p in ports if p != leader
+                        and any(r.startswith(want) for r in roles[p])]
+                if not held:
+                    raise NoTarget(f"the leader's server holds the sequencer "
+                                   f"and the GRV proxies: {roles}")
+                target = held[0]
+                out["stopped"] = ports.index(target)
             os.kill(mon.pid, signal.SIGSTOP)
-            victim = started(tmp)[leader][-1]
+            victim = started(tmp)[target][-1]
+            stop = stop_leader or stop_roles
+            watch = None
             try:
                 if relay is not None:
                     relay.hold()
-                os.kill(victim, signal.SIGSTOP if stop_leader
-                        else signal.SIGKILL)
+                os.kill(victim, signal.SIGSTOP if stop else signal.SIGKILL)
                 tk = time.perf_counter()
+                watch = cs.KillWatch(victim, target, ports)
                 while True:
                     ta = time.perf_counter()
                     try:
@@ -347,14 +380,16 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
                             else str(got)[:120]
                     except asyncio.TimeoutError:
                         got = outcome = "timeout"
+                        report = waits.report(time.perf_counter())
                         out.setdefault("timed_out", []).append({
                             "attempt": len(out["attempts"]),
-                            "awaiting": waits.report(time.perf_counter()),
+                            "awaiting": report,
+                            "sockets": watch.at(cs.awaited_ports(report)),
                             "published_epochs": await cs.published_epochs(
                                 cli.coordinators),
                             "view_epoch": cli.view.epoch,
                             "killed_server_roles": waits.roles_at(
-                                cli.view.state, leader),
+                                cli.view.state, target),
                             "killed_process": cs.exit_state(victim)})
                     except Exception as e:  # noqa: BLE001 — an outcome
                         got, outcome = None, type(e).__name__
@@ -365,15 +400,19 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
                         out["failover_s"] = round(time.perf_counter() - tk,
                                                   3)
                         break
-                    if time.perf_counter() - tk > (120 if stop_leader
-                                                   else 240):
+                    if time.perf_counter() - tk > (
+                            120 if stop_leader else 30 if stop_roles
+                            else 240):
                         out["failover_s"] = None
                         break
                     await asyncio.sleep(0.25)
             finally:
-                if stop_leader:
+                if stop:
+                    os.kill(victim, signal.SIGCONT)
                     os.kill(victim, signal.SIGKILL)
                 os.kill(mon.pid, signal.SIGCONT)
+                if watch is not None:
+                    out["kill_watch"] = cs.watch_summary(watch.stop())
             await cli.view.transport.close()
             if relay is not None:
                 await relay.close()
@@ -397,8 +436,22 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     with tempfile.TemporaryDirectory() as tmp:
         if "--deployment" in argv:
-            r = run_deployment(argv[0], tmp, "--stop-leader" in argv,
-                               "--hold-leader" in argv)
+            # --stop-roles needs the roles off the leader's server: a new
+            # deployment (new ports) until they are, at most 8
+            for i in range(8):
+                os.makedirs(os.path.join(tmp, str(i)))
+                try:
+                    r = run_deployment(argv[0], os.path.join(tmp, str(i)),
+                                       "--stop-leader" in argv,
+                                       "--hold-leader" in argv,
+                                       "--stop-roles" in argv)
+                except NoTarget:
+                    continue
+                r["deployments"] = i + 1
+                break
+            else:
+                raise NoTarget("8 deployments, the roles on the leader's "
+                               "server in each")
         else:
             r = run(argv[0], tmp, "--fresh-cli" in argv)
         print(json.dumps(r), flush=True)

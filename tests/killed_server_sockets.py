@@ -5,9 +5,15 @@ coordinator servers and a worker-only fourth, each ``--device
 DEVICE``), a first commit through the CLI, then for the first
 coordinator server: its open sockets and ``/dev/nvidia*`` files listed,
 a raw TCP connection opened to its port, the monitor SIGSTOPped and
-the server SIGKILLed; then every 0.1 s for up to 150 s, the process's
-state, whether that connection has closed (EOF or reset) and what a new
-connection gets (accepted or refused), until the connection closes.
+the server SIGKILLed; then every 0.1 s for up to 150 s, until 20 s
+after the connection closes (EOF or reset), what
+``chip_smoke.KillWatch`` reads from ``/proc`` (the process's state,
+open files and sockets; its
+port's LISTEN entry; the states of the sockets to and at its port; this
+process's own sockets to the four servers) beside whether that
+connection has closed, its state in ``/proc/net/tcp`` (matched by its
+inode) and what a new connection gets within 0.2 s (accepted, refused,
+or ``TimeoutError``: a dial that hangs).
 
     python tests/killed_server_sockets.py [DEVICE]
 
@@ -38,17 +44,6 @@ def fds(pid: int) -> dict:
         except OSError:
             pass
     return out
-
-
-def state(pid: int) -> str:
-    try:
-        with open(f"/proc/{pid}/status") as f:
-            for ln in f:
-                if ln.startswith("State:"):
-                    return ln.split()[1]
-    except OSError:
-        return "gone"
-    return "?"
 
 
 def new_connection(port: int) -> str:
@@ -94,19 +89,26 @@ def main(argv=None) -> int:
             table = fds(pid)
             conn = socket.create_connection(("127.0.0.1", port), 5)
             conn.setblocking(False)
+            inode = os.fstat(conn.fileno()).st_ino
+
+            def own():
+                return [closed(conn), next(
+                    (st for _, _, st, ino in cs.tcp_sockets()
+                     if ino == inode), "none"), new_connection(port)]
             os.kill(d.mon.pid, signal.SIGSTOP)
             os.kill(pid, signal.SIGKILL)
+            watch = cs.KillWatch(pid, port, d.ports, extra=own)
             t0 = time.perf_counter()
-            changes, closed_at = [], None
+            closed_at = None
             while time.perf_counter() - t0 < 150:
-                t = round(time.perf_counter() - t0, 2)
-                row = [t, state(pid), closed(conn), new_connection(port)]
-                if not changes or row[1:] != changes[-1][1:]:
-                    changes.append(row)
-                if row[2]:
-                    closed_at = t
+                if closed_at is None and watch.rows \
+                        and watch.rows[-1]["extra"][0]:
+                    closed_at = watch.rows[-1]["t"]
+                if closed_at is not None \
+                        and time.perf_counter() - t0 > closed_at + 20:
                     break
-                time.sleep(0.1)
+                time.sleep(0.05)
+            changes = watch.stop()
             conn.close()
             print(json.dumps({
                 "port": port, "pid": pid, "card": card,
@@ -114,8 +116,9 @@ def main(argv=None) -> int:
                                      if t.startswith("socket:")),
                 "nvidia_fds": sorted(fd for fd, t in table.items()
                                      if "nvidia" in t),
-                "connection_closed_s": closed_at, "changes": changes}),
-                flush=True)
+                "connection_closed_s": closed_at,
+                "summary": cs.watch_summary(changes),
+                "changes": changes}), flush=True)
         finally:
             d.stop()
     return 0

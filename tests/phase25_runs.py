@@ -3,7 +3,7 @@ three coordinator servers and a worker-only fourth, the CLI, the
 leader's SIGKILL with the monitor paused, the C ABI) run on its own,
 once for each mode named, each run's failover attempts printed.
 
-    python tests/phase25_runs.py majority,gathered,... [DEVICE]
+    python tests/phase25_runs.py majority,gathered,... [DEVICE] [--hangs N]
 
 A mode sets the client's cluster-state refresh for the run:
 ``majority`` is the port as it is (``core/cluster_client.py``
@@ -12,7 +12,11 @@ waits for every coordinator, as the JAX package does.  ``DEVICE`` is
 the servers' ``--device`` (``cuda``, the default, or ``cpu``).  One JSON
 line a run: the attempts ([start s after the kill, outcome, s]), the
 seconds from the kill to the first commit, what each timed-out attempt
-was awaiting, and phase 25's line.
+was awaiting (with the socket states ``chip_smoke.KillWatch`` saw),
+when the killed process and its sockets went (``kill_watch``), the
+connections the transports cut after their peer's silence
+(``connection_timeouts``), and phase 25's line.  With ``--hangs N``
+the loop ends after the Nth run whose first attempt did not commit.
 """
 
 from __future__ import annotations
@@ -31,7 +35,12 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from foundationdb_tpu_torch.core import cluster_client
 
-    argv = sys.argv[1:] if argv is None else argv
+    argv = sys.argv[1:] if argv is None else list(argv)
+    hangs = None
+    if "--hangs" in argv:
+        i = argv.index("--hangs")
+        hangs = int(argv[i + 1])
+        del argv[i:i + 2]
     modes = argv[0].split(",")
     dev = argv[1] if len(argv) > 1 else "cuda"
     card = "cpu"
@@ -44,6 +53,7 @@ def main(argv=None) -> int:
         print(f"{card}; kernels built in {K.build():.3f} s", flush=True)
     cs.CARD = card
     cs._START[0] = time.perf_counter()
+    hung = 0
     for i, mode in enumerate(modes):
         cluster_client.MAJORITY_REFRESH = mode == "majority"
         t = time.perf_counter()
@@ -53,12 +63,18 @@ def main(argv=None) -> int:
             rec = {"run": i, "mode": mode, "ok": True,
                    "attempts": r["failover_attempts"],
                    "failover_s": r["failover_s"],
-                   "timed_out": r.get("timed_out", []), "line": line}
+                   "timed_out": r.get("timed_out", []),
+                   "kill_watch": r.get("kill_watch"),
+                   "connection_timeouts": r["connection_timeouts"],
+                   "line": line}
         except SystemExit:
             rec = {"run": i, "mode": mode, "ok": False}
         rec["seconds"] = time.perf_counter() - t
         rec["card"] = card
         print(json.dumps(rec), flush=True)
+        hung += not rec["ok"] or rec["attempts"][0][1] != "committed"
+        if hangs is not None and hung >= hangs:
+            break
     return 0
 
 

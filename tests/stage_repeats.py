@@ -3,8 +3,11 @@ each run's printed line and outcome kept: how often the stage's
 wall-clock gates hold on this machine.
 
     python tests/stage_repeats.py STAGE RUNS [--device cuda|cpu]
+        [--first STAGE]
 
-``STAGE`` is a name of ``perf_smoke.STAGES``.  One JSON line a run
+``STAGE`` is a name of ``perf_smoke.STAGES``.  ``--first`` runs another
+stage once before the repeats, unmeasured, as ``chip_smoke.py`` phase
+30 runs ``read`` before ``mesh``.  One JSON line a run
 (``{"stage": ..., "i": ..., "ok": ..., "seconds": ..., "lines": [...],
 "error": ...}``), then ``{"stage": ..., "runs": N, "fails": F}``.
 """
@@ -34,12 +37,23 @@ def main(argv=None) -> int:
     ap.add_argument("stage", choices=ps.STAGES)
     ap.add_argument("runs", type=int)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--first", choices=ps.STAGES)
     args = ap.parse_args(argv)
     drop = TraceLog()
     drop.sink = lambda ev: None
     set_trace_log(drop)
-    check = ps.check if args.stage == "apply" else getattr(
-        ps, f"check_{args.stage}")
+    if args.device == "cuda":
+        from foundationdb_tpu_torch.ops import kernels as K
+        K.build_missing()
+
+    def stage_check(name: str):
+        return ps.check if name == "apply" else getattr(ps,
+                                                        f"check_{name}")
+
+    if args.first:
+        with contextlib.redirect_stdout(io.StringIO()):
+            stage_check(args.first)(device=torch.device(args.device))
+    check = stage_check(args.stage)
     fails = 0
     for i in range(args.runs):
         buf = io.StringIO()

@@ -24,6 +24,12 @@ wrote the newest state.  It cancels the requests still out.
 - Phase 25's deployment on the CPU with the leader's coordinator held
   silent from the kill on (``tests/failover_attempts.py --deployment
   --hold-leader``) commits on its first attempt.
+- The same deployment with a server other than the leader's that holds
+  epoch 1's sequencer or a GRV proxy SIGSTOPped (``--stop-roles``: a
+  peer that keeps its sockets and answers nothing, ROADMAP C5) commits
+  on its first attempt, since the port's TCP transport cuts a request to
+  a peer that answers no ping; the reference's first attempt times out
+  on that server, a recorded fault of the reference.
 """
 
 from __future__ import annotations
@@ -255,6 +261,18 @@ def test_majority_first_returns_before_the_slowest_reply():
     assert time.perf_counter() - t < 0.4
 
 
+def deployment(package: str, *flags: str) -> dict:
+    """``tests/failover_attempts.py PACKAGE --deployment FLAGS`` in a
+    process of its own, with 240 s: its record."""
+    p = subprocess.run(
+        [sys.executable, os.path.join(TESTS, "failover_attempts.py"),
+         package, "--deployment", *flags], cwd=REPO, capture_output=True,
+        text=True, timeout=240,
+        env=dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"))
+    assert p.returncode == 0, p.stderr[-3000:]
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
 def test_deployment_with_the_leader_held_silent_commits_at_once(tmp_path):
     """Phase 25's first monitor lifetime on the CPU (the port's
     fdbmonitor, three coordinator servers and a worker-only fourth,
@@ -266,13 +284,7 @@ def test_deployment_with_the_leader_held_silent_commits_at_once(tmp_path):
     in ROADMAP C3.  The first attempt commits, unless it waits on
     another request (the repair does not reach those, ROADMAP C5), which
     the failure then names.  The run has 240 s."""
-    p = subprocess.run(
-        [sys.executable, os.path.join(TESTS, "failover_attempts.py"), PORT,
-         "--deployment", "--hold-leader"], cwd=REPO, capture_output=True,
-        text=True, timeout=240,
-        env=dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1"))
-    assert p.returncode == 0, p.stderr[-3000:]
-    r = json.loads(p.stdout.strip().splitlines()[-1])
+    r = deployment(PORT, "--hold-leader")
     assert r["hold_leader"] and r["held"] in (0, 1, 2), r
     assert r["monitor_rc"] == 0, r
     waits = json.dumps(r.get("timed_out", []))
@@ -280,3 +292,37 @@ def test_deployment_with_the_leader_held_silent_commits_at_once(tmp_path):
     assert '"coordinator.' not in waits, waits
     if r["attempts"][0][1] != "committed":
         pytest.fail(f"the first attempt waited on another request: {waits}")
+
+
+def stopped_roles(r: dict) -> list:
+    """The client-facing roles the stopped server held in epoch 1."""
+    assert r["stop_roles"] and r["stopped"] != r["leader"], r
+    return r["roles"][str(r["stopped"])]
+
+
+def test_deployment_with_a_role_server_stopped_commits_at_once():
+    """The deployment with a server other than the leader's SIGSTOPped,
+    one that holds epoch 1's sequencer or a GRV proxy, from the moment
+    the CLI has its epoch-1 view (``--stop-roles``): the client's GRV
+    awaits that server, directly or through a live proxy, and the
+    server answers nothing while its sockets stay open.  The port's
+    transport cuts the request after the window of silence, the retry
+    reaches the recovered epoch, and the first attempt commits."""
+    r = deployment(PORT, "--stop-roles")
+    roles = stopped_roles(r)
+    assert any(x.startswith(("sequencer", "grv_proxies")) for x in roles), r
+    assert r["monitor_rc"] == 0, r
+    waits = json.dumps(r.get("timed_out", []))
+    assert r["attempts"][0][1] == "committed", waits
+    assert r["failover_s"] < 30, r
+
+
+def test_role_server_stopped_holds_the_client_reference_fault():
+    """The reference's client in the same deployment: its GRV awaits the
+    stopped server with no end, so the first attempt times out (30 s),
+    awaiting an epoch-1 request."""
+    r = deployment(REF, "--stop-roles")
+    stopped_roles(r)
+    assert r["attempts"][0][1] == "timeout", r
+    awaiting = r["timed_out"][0]["awaiting"]
+    assert awaiting and all(w["epoch"] == 1 for w in awaiting), awaiting
