@@ -221,7 +221,7 @@ commit and storage paths on the card and exits non-zero on any failure:
    B8 its latency bound: one probe's search chain at N = 2**24 measured
    in phase 3; K1 and K3 their times at the simulator's shapes); the
    last line is the result;
-29. (started after phase 17; phases 14, 15 and 18-25 run beside its
+29. (started after phase 17; phases 14, 15, 18-25 and 32 run beside its
    host stages) the north star in full as its own process on the card:
    ``python3 -m foundationdb_tpu_torch.bench.north_star`` (the resolver
    at BASELINE config 2, 4096 batches x 64 txns over 1M 32-byte keys,
@@ -235,7 +235,7 @@ commit and storage paths on the card and exits non-zero on any failure:
    ``read_point`` (one read version held for 5 s of reads against a 5 s
    MVCC window, which a contended host pushes out of it), this process
    runs beside the rest ``--quick`` (one JSON line, exit 0) and
-   phases 14, 15 and 18-25, and waits for its end before phase 26: the
+   phases 14, 15, 18-25 and 32, and waits for its end before phase 26: the
    seconds of those phases, 14's and 15's rates and the north star's
    host-stage numbers of this run are taken under that contention.
    Gates: exit 0, no stage error or timeout, ``backend_used`` cuda,
@@ -269,7 +269,15 @@ commit and storage paths on the card and exits non-zero on any failure:
    CPU run to (``SIM_DIGESTS``), every K1, K3, K2 and B8 call equals
    its plain version (tolerance 0) with one record for each launch,
    K1 = K3 > 0, and the devplane mode launches K2; the launches in
-   ``launches_by_phase["31"]``.
+   ``launches_by_phase["31"]``;
+32. (after phase 25, beside the north star) a fresh deployment as phase
+   25 builds it, the elected leader's server SIGSTOPped (the monitor
+   paused), a process that keeps its sockets open and answers nothing
+   (ROADMAP C4): each attempt of a commit printed as phase 25 prints
+   them, the first must commit; then SIGCONT and SIGKILL, the monitor
+   restarts the server, every acknowledged write reads back, no
+   connection to a live server was cut for silence, and SIGTERM stops
+   every server with exit code 0.
 
 Each phase's closing line goes to stderr too, after the seconds since
 the start; a wait on a child process (the north star, the farm, phase
@@ -334,11 +342,11 @@ SIM_CHILD = os.path.join("tests", "test_sim_determinism.py")
 SIM_MODES = ("default", "mesh_on", "devplane")
 SIM_DIGESTS = {
     "default":
-        "a70e80ac85621b809c893450c7f07760081e7206cc1756eadf53b12d87dbf689",
+        "4d6351055d4d346f73be0abffd510a94d6f6656064fa9c0329852875a3c32cb2",
     "mesh_on":
-        "40c806513e072e2f4403eed0fec5f046b2bb8aaa9b17ea958f3ef339048221b4",
+        "1c00868ee98dcb8f455383318e8d785bcbbb8d7700be929e03d8eabe5bdaeda8",
     "devplane":
-        "a70e80ac85621b809c893450c7f07760081e7206cc1756eadf53b12d87dbf689",
+        "4d6351055d4d346f73be0abffd510a94d6f6656064fa9c0329852875a3c32cb2",
 }
 CARD = ""          # nvidia-smi's name and power limit, set by main
 # the compact per-kernel and per-phase summary printed before the kernels
@@ -3906,6 +3914,103 @@ class Deployment:
                                and "Traceback" in self._read(f)]}
 
 
+async def elected_leader(d: Deployment) -> int:
+    """The port of the server the coordinators name as the leader."""
+    from foundationdb_tpu_torch.rpc.stubs import CoordinatorClient
+    from foundationdb_tpu_torch.rpc.tcp_transport import TcpTransport
+    from foundationdb_tpu_torch.rpc.transport import (NetworkAddress,
+                                                      WLTOKEN_COORDINATOR)
+    t = TcpTransport(NetworkAddress("127.0.0.1", 0))
+    leader = None
+    try:
+        for p in d.ports[:3]:
+            co = CoordinatorClient(t, NetworkAddress("127.0.0.1", p),
+                                   WLTOKEN_COORDINATOR)
+            try:
+                led = await asyncio.wait_for(co.read_leader(), 5)
+            except (Exception, asyncio.TimeoutError):
+                continue
+            if led is not None:
+                leader = led[1][1]
+                break
+    finally:
+        await t.close()
+    if leader not in d.ports:
+        fail(f"no elected leader among the servers: {leader}")
+    return leader
+
+
+async def attempts_after(d: Deployment, cli_, waits, victim_port: int,
+                         sig: int, out: dict, label: str,
+                         budget: float) -> None:
+    """Signal ``sig`` (SIGKILL or SIGSTOP) to server ``victim_port``'s
+    process with the monitor paused, then ``set after failover`` through
+    ``cli_`` until it commits, each attempt under 30 s and 0.25 s after
+    the last, each printed: ``out``'s ``failover_attempts`` [start s after
+    the signal, outcome, s], ``timed_out`` (what each timed-out attempt
+    was awaiting, ``waits``), ``failover_s`` and ``kill_watch``.  Fails
+    after ``budget`` s without a commit.  A stopped server gets SIGCONT
+    and SIGKILL after the attempts; then the monitor resumes."""
+    import signal
+    # the monitor paused while the survivors recover: a server restarted
+    # at once is an empty coordinator, which can strand the new
+    # generation (ROADMAP C)
+    os.kill(d.mon.pid, signal.SIGSTOP)
+    attempts = out.setdefault("failover_attempts", [])
+    watch = victim = None
+    try:
+        victim = d.started()[victim_port][-1]
+        os.kill(victim, sig)
+        tk = time.perf_counter()
+        watch = KillWatch(victim, victim_port, d.ports)
+        while True:
+            ta = time.perf_counter()
+            try:
+                got = await asyncio.wait_for(
+                    cli_.execute("set after failover"), 30)
+                outcome = "committed" if got == "Committed" \
+                    else str(got)[:120]
+            except asyncio.TimeoutError:
+                got = outcome = "timeout"
+                report = waits.report(time.perf_counter())
+                out.setdefault("timed_out", []).append({
+                    "attempt": len(attempts),
+                    "awaiting": report,
+                    "sockets": watch.at(awaited_ports(report)),
+                    "published_epochs": await published_epochs(
+                        cli_.coordinators),
+                    "view_epoch": cli_.view.epoch,
+                    "killed_server_roles": waits.roles_at(
+                        cli_.view.state, victim_port),
+                    "killed_process": exit_state(victim)})
+                say(f"{label}: attempt {len(attempts)} timed out: "
+                    f"{json.dumps(out['timed_out'][-1])}")
+            except Exception as e:
+                outcome = type(e).__name__
+                raise
+            finally:
+                attempts.append([round(ta - tk, 3), outcome,
+                                 round(time.perf_counter() - ta, 3)])
+                say(f"{label}: attempt {len(attempts) - 1} [start s after "
+                    f"the signal, outcome, s] {json.dumps(attempts[-1])}")
+            if got == "Committed":
+                out["failover_s"] = time.perf_counter() - tk
+                break
+            if time.perf_counter() - tk > budget:
+                say(f"{label}: failover attempts [start s after the "
+                    f"signal, outcome, s]: {json.dumps(attempts)}")
+                fail(f"{label}: no commit within {budget} s of the "
+                     f"signal to the leader's server: {got}")
+            await asyncio.sleep(0.25)
+    finally:
+        if sig == signal.SIGSTOP and victim is not None:
+            os.kill(victim, signal.SIGCONT)
+            os.kill(victim, signal.SIGKILL)
+        os.kill(d.mon.pid, signal.SIGCONT)
+        if watch is not None:
+            out["kill_watch"] = watch_summary(watch.stop())
+
+
 def deployment_phase(dev_name: str, root: str | None = None) -> dict:
     """Phase 25, the operator's deployment, in two fdbmonitor lifetimes
     (``Deployment``), each with at most one server killed: replication 2
@@ -3931,11 +4036,8 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
 
     from foundationdb_tpu_torch.cli import open_cli
     from foundationdb_tpu_torch.native.build import build
-    from foundationdb_tpu_torch.rpc.stubs import (ROLE_METHODS,
-                                                  CoordinatorClient)
-    from foundationdb_tpu_torch.rpc.tcp_transport import TcpTransport
-    from foundationdb_tpu_torch.rpc.transport import (NetworkAddress,
-                                                      WLTOKEN_COORDINATOR)
+    from foundationdb_tpu_torch.rpc.stubs import ROLE_METHODS
+    from foundationdb_tpu_torch.rpc.transport import WLTOKEN_COORDINATOR
     from foundationdb_tpu_torch.runtime.knobs import Knobs
     from foundationdb_tpu_torch.runtime.trace import (TraceLog,
                                                       get_trace_log,
@@ -3971,84 +4073,10 @@ def deployment_phase(dev_name: str, root: str | None = None) -> dict:
                     waits = OutstandingRequests(
                         cli_.view.transport, lambda: cli_.view,
                         ROLE_METHODS, WLTOKEN_COORDINATOR)
-                    t = TcpTransport(NetworkAddress("127.0.0.1", 0))
-                    leader = None
-                    try:
-                        for p in d.ports[:3]:
-                            co = CoordinatorClient(t, NetworkAddress(
-                                "127.0.0.1", p), WLTOKEN_COORDINATOR)
-                            try:
-                                led = await asyncio.wait_for(
-                                    co.read_leader(), 5)
-                            except (Exception, asyncio.TimeoutError):
-                                continue
-                            if led is not None:
-                                leader = led[1][1]
-                                break
-                    finally:
-                        await t.close()
-                    if leader not in d.ports:
-                        fail(f"no elected leader among the servers: {leader}")
-                    out["leader"] = leader
-                    # the monitor paused while the survivors recover: a
-                    # server restarted at once is an empty coordinator,
-                    # which can strand the new generation (ROADMAP C)
-                    os.kill(d.mon.pid, signal.SIGSTOP)
-                    # every attempt of the set after the kill: its start
-                    # from the kill, its outcome and its seconds
-                    attempts = out.setdefault("failover_attempts", [])
-                    watch = None
-                    try:
-                        victim = d.started()[leader][-1]
-                        os.kill(victim, signal.SIGKILL)
-                        tk = time.perf_counter()
-                        watch = KillWatch(victim, leader, d.ports)
-                        while True:
-                            ta = time.perf_counter()
-                            try:
-                                got = await asyncio.wait_for(
-                                    cli_.execute("set after failover"), 30)
-                                outcome = "committed" if got == "Committed" \
-                                    else str(got)[:120]
-                            except asyncio.TimeoutError:
-                                got = outcome = "timeout"
-                                report = waits.report(time.perf_counter())
-                                out.setdefault("timed_out", []).append({
-                                    "attempt": len(attempts),
-                                    "awaiting": report,
-                                    "sockets": watch.at(
-                                        awaited_ports(report)),
-                                    "published_epochs":
-                                        await published_epochs(
-                                            cli_.coordinators),
-                                    "view_epoch": cli_.view.epoch,
-                                    "killed_server_roles": waits.roles_at(
-                                        cli_.view.state, leader),
-                                    "killed_process": exit_state(victim)})
-                                say(f"deployment: attempt {len(attempts)} "
-                                    f"timed out: "
-                                    f"{json.dumps(out['timed_out'][-1])}")
-                            except Exception as e:
-                                outcome = type(e).__name__
-                                raise
-                            finally:
-                                attempts.append(
-                                    [round(ta - tk, 3), outcome,
-                                     round(time.perf_counter() - ta, 3)])
-                            if got == "Committed":
-                                out["failover_s"] = time.perf_counter() - tk
-                                break
-                            if time.perf_counter() - tk > 240:
-                                say(f"failover attempts [start s after "
-                                    f"the kill, outcome, s]: "
-                                    f"{json.dumps(attempts)}")
-                                fail(f"no commit within 240 s of the "
-                                     f"leader's kill: {got}")
-                            await asyncio.sleep(0.25)
-                    finally:
-                        os.kill(d.mon.pid, signal.SIGCONT)
-                        if watch is not None:
-                            out["kill_watch"] = watch_summary(watch.stop())
+                    out["leader"] = await elected_leader(d)
+                    await attempts_after(d, cli_, waits, out["leader"],
+                                         signal.SIGKILL, out, "deployment",
+                                         240)
                     out["acked"][b"after"] = b"failover"
                     out["native"] = await binding_observations_native(
                         cli_, b"n/")
@@ -4238,6 +4266,118 @@ def check_deployment_phase(r: dict, card: str) -> str:
             f"and {r['respawn_s']:.3f} s, C smoke {r['c_smoke_s']:.3f} s, "
             f"binding {r['binding_s']:.3f} s, resolver dispatches "
             f"{dv['dispatches']}, every server stopped rc=0 ({card})")
+
+
+# --------------------------------------------------------------------------
+# phase 32: the elected leader's server stopped (ROADMAP C4)
+
+
+def stopped_leader_phase(dev_name: str, root: str | None = None) -> dict:
+    """Phase 32, a fresh deployment as phase 25 builds it
+    (``Deployment``: the port's fdbmonitor over three coordinator
+    servers and a worker-only fourth, each ``device = <dev_name>``): the
+    first commit through the CLI and 16 writes; then the elected
+    leader's server SIGSTOPped with the monitor paused, a process that
+    keeps its sockets open and answers nothing, and the set after the
+    stop attempted as phase 25 attempts it (``attempts_after``); the
+    stopped server then gets SIGCONT and SIGKILL, and the monitor,
+    resumed, restarts it; every acknowledged write read back through the
+    CLI; SIGTERM."""
+    import signal
+
+    from foundationdb_tpu_torch.cli import open_cli
+    from foundationdb_tpu_torch.rpc.stubs import ROLE_METHODS
+    from foundationdb_tpu_torch.rpc.transport import WLTOKEN_COORDINATOR
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.trace import (TraceLog,
+                                                      get_trace_log,
+                                                      set_trace_log)
+
+    out: dict = {"client_pids": []}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        prev_log = get_trace_log()
+        set_trace_log(TraceLog(path=os.path.join(tmp, "client.jsonl")))
+        try:
+            d = Deployment(dev_name, os.path.join(tmp, "stop"),
+                           out["client_pids"])
+            try:
+                d.until("set first 1", "Committed", 300)
+                out["first_commit_s"] = time.perf_counter() - d.t0
+                writes = {b"stop/%02d" % i: b"v%d" % i for i in range(16)}
+                got = d.cli("; ".join(f"set {k.decode()} {v.decode()}"
+                                      for k, v in writes.items()))
+                if got.split() != ["Committed"] * 16:
+                    fail(f"the CLI's writes: {got}")
+                out["acked"] = {b"first": b"1", **writes}
+
+                async def failover():
+                    cli_ = await open_cli(d.cf_path, Knobs(), timeout=60)
+                    waits = OutstandingRequests(
+                        cli_.view.transport, lambda: cli_.view,
+                        ROLE_METHODS, WLTOKEN_COORDINATOR)
+                    out["leader"] = await elected_leader(d)
+                    await attempts_after(d, cli_, waits, out["leader"],
+                                         signal.SIGSTOP, out,
+                                         "stopped leader", 120)
+                    await cli_.view.transport.close()
+                asyncio.run(asyncio.wait_for(failover(), 300))
+                out["acked"][b"after"] = b"failover"
+                # the monitor resumed: it restarts the killed server
+                out["leader_restart_s"] = d.up_after(out["leader"], 2, 120)
+                out["read_back"] = d.read_back(sorted(out["acked"]))
+            finally:
+                out["life"] = d.stop()
+        finally:
+            out["connection_timeouts"] = connection_timeouts(tmp)
+            get_trace_log().close()
+            set_trace_log(prev_log)
+    return out
+
+
+def check_stopped_leader_phase(r: dict, card: str) -> str:
+    """Phase 32's gates: the first attempt after the SIGSTOP commits,
+    every acknowledged write reads back, connections are cut only to
+    the stopped server's address, and every server stops rc=0 on
+    SIGTERM; returns its one-line result."""
+    bad_back = {k: v for k, v in r["read_back"].items()
+                if v != f"`{k.decode()}' is `{r['acked'][k].decode()}'"}
+    life = r["life"]
+    stopped = f"127.0.0.1:{r['leader']}"
+    cut_elsewhere = [c for c in r["connection_timeouts"] if c[1] != stopped]
+    say(f"stopped leader: spawn to the first commit through the CLI "
+        f"{r['first_commit_s']:.3f} s; leader {r['leader']} SIGSTOPped with "
+        f"the monitor paused; failover attempts [start s after the stop, "
+        f"outcome, s]: {json.dumps(r['failover_attempts'])}, the first "
+        f"commit {r['failover_s']:.3f} s after the SIGSTOP; the server "
+        f"then SIGKILLed and restarted by the monitor in "
+        f"{r['leader_restart_s']:.3f} s ({card})")
+    say(f"stopped leader: timed-out attempts "
+        f"{json.dumps(r.get('timed_out', []))}; connections cut after "
+        f"their peer's silence (file, peer, phase, silent s, pending; the "
+        f"stopped server {stopped}): {json.dumps(r['connection_timeouts'])}")
+    say(f"stopped leader: {len(r['read_back'])} acknowledged keys read "
+        f"back, {len(bad_back)} wrong; monitor rc {life['rc']}, "
+        f"{life['stopped']}; server logs with a traceback "
+        f"{life['tracebacks']}")
+    if r["failover_attempts"][0][1] != "committed":
+        fail(f"phase 32: the first attempt after the leader's SIGSTOP did "
+             f"not commit: {json.dumps(r['failover_attempts'])}")
+    if bad_back:
+        fail(f"phase 32: an acknowledged write did not read back: "
+             f"{bad_back}")
+    if cut_elsewhere:
+        fail(f"phase 32: a connection to a live server was cut: "
+             f"{cut_elsewhere}")
+    if life["rc"] != 0 or len(life["stopped"]) != 4 or any(
+            not ln.endswith("rc=0") for ln in life["stopped"]) \
+            or life["tracebacks"] or not life["alive"]:
+        fail("phase 32: the monitor or a server did not stop cleanly on "
+             f"SIGTERM: {life['log'][-3000:]}")
+    return (f"phase 32: first commit {r['first_commit_s']:.3f} s, the "
+            f"first attempt after the leader's SIGSTOP committed "
+            f"{r['failover_s']:.3f} s after it, restart "
+            f"{r['leader_restart_s']:.3f} s, {len(r['read_back'])} keys read "
+            f"back, every server stopped rc=0 ({card})")
 
 
 # --------------------------------------------------------------------------
@@ -5437,7 +5577,7 @@ def main() -> None:
     # threads).  Its host stages (after its device-plane stage) are
     # host-bound; once read_point, whose one read version must outlive 5
     # s of reads inside a 5 s MVCC window, has ended, --quick and phases
-    # 14, 15 and 18-25 run beside them: the smoke as a whole does not fit
+    # 14, 15, 18-25 and 32 run beside them: the smoke as a whole does not fit
     # its time limit in sequence.  The north star ends before phase 26's
     # card passes
     gc.collect()
@@ -5519,6 +5659,12 @@ def main() -> None:
         SUMMARY.append(check_deployment_phase(deployment_phase("cuda"),
                                               CARD))
         phase_done(f"phase 25: {time.perf_counter() - t0:.1f} s ({CARD})")
+        # 32. a fresh deployment with the elected leader's server
+        # SIGSTOPped, beside the north star as phase 25 runs
+        t0 = time.perf_counter()
+        SUMMARY.append(check_stopped_leader_phase(
+            stopped_leader_phase("cuda"), CARD))
+        phase_done(f"phase 32: {time.perf_counter() - t0:.1f} s ({CARD})")
         # the north star's end, before phase 26 takes the host
         t0 = time.perf_counter()
         r29 = north_star_finish(ns)

@@ -15,7 +15,6 @@ this view from an in-process cluster.py assembly.
 
 from __future__ import annotations
 
-import asyncio
 
 from ..client.database import Database
 from ..client.transaction import Transaction
@@ -23,6 +22,7 @@ from ..rpc.stubs import (CommitProxyClient, GrvProxyClient, StorageClient)
 from ..rpc.transport import NetworkAddress, Transport
 from ..runtime.errors import FdbError
 from ..runtime.knobs import Knobs
+from .coordination import quorum_round
 from .data import KeyRange
 from .load_balance import ReplicaGroup
 from .shard_map import ShardMap
@@ -128,16 +128,6 @@ async def open_cluster(knobs: Knobs, transport: Transport,
     return RecoveredClusterView(knobs, transport, state)
 
 
-# A refresh returns once a majority of the coordinators has answered with
-# a state: a majority intersects the quorum that wrote the newest state,
-# so the newest of theirs is the newest of all, and a coordinator that
-# holds its connection without answering no longer holds up the client.
-# Off, the refresh waits for every coordinator, as the reference's does;
-# the parity tests turn it off to hold the simulator's schedule to the
-# reference's event for event.
-MAJORITY_REFRESH = True
-
-
 def _state_of(reply) -> dict | None:
     """The cluster state a coordinator's ``open_database`` reply carries:
     None for an error, an empty reply or a retired coordinator's forward;
@@ -152,44 +142,16 @@ def _state_of(reply) -> dict | None:
     return reply
 
 
-def _reply(task: asyncio.Task):
-    """A finished request's reply, or the exception it ended with."""
-    if task.cancelled():
-        return asyncio.CancelledError()
-    return task.exception() or task.result()
-
-
-async def _majority_replies(coordinators: list) -> list:
-    """Every coordinator's ``open_database`` reply (an exception for one
-    that failed), in the coordinators' order, as far as they came by the
-    time a majority had answered with a state, or all had answered; the
-    requests still out are cancelled and awaited."""
-    tasks = [asyncio.ensure_future(c.open_database()) for c in coordinators]
-    need = len(tasks) // 2 + 1
-    try:
-        pending, states = set(tasks), 0
-        while pending and states < need:
-            done, pending = await asyncio.wait(
-                pending, return_when=asyncio.FIRST_COMPLETED)
-            states += sum(_state_of(_reply(t)) is not None for t in done)
-        return [_reply(t) for t in tasks if t.done()]
-    finally:
-        rest = [t for t in tasks if not t.done()]
-        for t in rest:
-            t.cancel()
-        if rest:
-            await asyncio.wait(rest)
-        for t in rest:
-            _reply(t)           # retrieved: no "exception never retrieved"
-
-
 async def fetch_cluster_state(coordinators: list) -> dict:
-    if MAJORITY_REFRESH:
-        replies = await _majority_replies(coordinators)
-    else:
-        replies = await asyncio.gather(
-            *(c.open_database() for c in coordinators),
-            return_exceptions=True)
+    # A refresh returns once a majority of the coordinators has answered
+    # with a state (``quorum_round``): a majority intersects the quorum
+    # that wrote the newest state, so the newest of theirs is the newest
+    # of all, and a coordinator that holds its connection without
+    # answering no longer holds up the client.
+    need = len(coordinators) // 2 + 1
+    replies = await quorum_round(
+        [c.open_database() for c in coordinators],
+        lambda rs: sum(_state_of(r) is not None for r in rs) >= need)
     best: dict | None = None
     moved: list | None = None
     for reply in replies:

@@ -25,7 +25,7 @@ from ..runtime.knobs import Knobs
 from ..runtime.trace import TraceEvent
 from .cluster_controller import ClusterConfigSpec, ClusterController
 from .coordination import (CoordinatedState, CoordinatorsUnreachable,
-                           elect_leader)
+                           elect_leader, granted, quorum_round, tallied)
 from .worker import Worker
 
 CC_TOKEN_OFFSET = 8     # CC RPC surface inside the worker's token block
@@ -343,16 +343,18 @@ class ClusterHost:
                     await self._maybe_complete_move(exc)
                     return
                 # bound each renewal RPC: a dead coordinator must not
-                # stall the round past the live coordinators' lease
+                # stall the round past the live coordinators' lease; a
+                # renewal ends once a majority has renewed (or cannot)
                 async def hb(c):
                     return await asyncio.wait_for(
                         c.leader_heartbeat(self.id),
                         timeout=k.LEADER_LEASE_DURATION / 4)
-                replies = await asyncio.gather(
-                    *(hb(c) for c in self.coordinators),
-                    return_exceptions=True)
+                majority = len(self.coordinators) // 2 + 1
+                replies = await quorum_round(
+                    [hb(c) for c in self.coordinators],
+                    tallied(granted, majority))
                 good = sum(1 for r in replies if r is True)
-                if good < len(self.coordinators) // 2 + 1:
+                if good < majority:
                     TraceEvent("CCLeaseLost", severity=30) \
                         .detail("Host", self.id).log()
                     return

@@ -51,6 +51,126 @@ Generation = tuple[int, int]
 GEN_ZERO: Generation = (0, 0)
 
 
+# Every round of calls made to the coordinators (each phase of an
+# election round, the leader's lease renewal, the coordinated state's
+# reads and writes, the client's cluster-state refresh) returns once its
+# answers decide it (``quorum_replies``), as the reference FoundationDB's
+# tryBecomeLeaderInternal waits on quorum(..., majority): a coordinator
+# that keeps its connection and answers nothing no longer costs every
+# round the per-call bound, and a nomination outlives the longest
+# nominate-to-confirm span a candidate can count
+# (``nomination_lifetime``).  Off, every round waits for every
+# coordinator and a nomination lives NOMINATION_TIMEOUT, as in the JAX
+# package; the parity tests turn it off to hold the simulator's
+# schedule to the reference's event for event.
+MAJORITY_ROUNDS = True
+
+# a call ``quorum_replies`` has not seen end, as ``settled`` sees it
+STILL_OUT = object()
+
+
+def _reply(task: asyncio.Task):
+    """A finished call's reply, or the exception it ended with."""
+    if task.cancelled():
+        return asyncio.CancelledError()
+    return task.exception() or task.result()
+
+
+async def quorum_replies(calls: list, settled) -> list:
+    """Start every call (each to one coordinator) at once and return their
+    replies in the calls' order (the exception a call ended with in place
+    of its reply) once ``settled`` holds of them or every call has ended.
+    ``settled`` is asked after each reply with the replies so far,
+    ``STILL_OUT`` for each call still out; those are then cancelled and
+    awaited, and stand in the result as a ``CancelledError``.
+
+    What settles a phase, with ``need`` a majority of the coordinators:
+
+    - the client's refresh (``open_database``): ``need`` replies that
+      carry a cluster state;
+    - ``read_leader`` (elect_leader's poll): ``need`` replies that name
+      one unexpired leader, or none can, counting each call still out;
+    - ``nominate``: ``need`` replies that name one confirmed leader or
+      one best nominee, or none can;
+    - ``confirm`` and ``leader_heartbeat``: ``need`` replies of True, or
+      they can no longer come;
+    - the coordinated state's ``read`` and ``write``: ``need`` replies,
+      or they can no longer come;
+    - ``withdraw``: a reply from every coordinator that may hold the
+      round's lease, each whose ``confirm`` did not answer False."""
+    tasks = [asyncio.ensure_future(c) for c in calls]
+    try:
+        pending = set(tasks)
+        while pending and not settled(
+                [_reply(t) if t.done() else STILL_OUT for t in tasks]):
+            _, pending = await asyncio.wait(
+                pending, return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        rest = [t for t in tasks if not t.done()]
+        for t in rest:
+            t.cancel()
+        if rest:
+            await asyncio.wait(rest)
+    return [_reply(t) for t in tasks]
+
+
+def tallied(key, need: int):
+    """The ``settled`` rule of a tallied phase: ``need`` replies share
+    one ``key`` (None for a reply that names nothing), or no key can
+    reach ``need`` even if every call still out answered it."""
+    def settled(replies: list) -> bool:
+        tally: dict = {}
+        out = 0
+        for r in replies:
+            if r is STILL_OUT:
+                out += 1
+            elif not isinstance(r, BaseException) \
+                    and (v := key(r)) is not None:
+                tally[v] = tally.get(v, 0) + 1
+        top = max(tally.values(), default=0)
+        return top >= need or top + out < need
+    return settled
+
+
+def granted(reply) -> bool | None:
+    """A ``confirm`` or ``leader_heartbeat`` reply's key: True, or
+    None."""
+    return True if reply is True else None
+
+
+async def quorum_round(calls: list, settled) -> list:
+    """One round of calls to the coordinators: what ``quorum_replies``
+    returns, or with MAJORITY_ROUNDS off every call's reply."""
+    if MAJORITY_ROUNDS:
+        return await quorum_replies(calls, settled)
+    return await asyncio.gather(*calls, return_exceptions=True)
+
+
+def election_rpc_bound(k: Knobs) -> float:
+    """The bound on each of elect_leader's calls to a coordinator."""
+    return min(k.LEADER_LEASE_DURATION / 4, k.FAILURE_TIMEOUT)
+
+
+def nomination_lifetime(k: Knobs) -> float:
+    """How long a coordinator keeps an unrefreshed candidacy.
+
+    A nomination is recorded at a coordinator no sooner than its
+    candidate sent it; the candidate's nominate phase ends within one
+    ``election_rpc_bound``, and it counts a confirm's answer only if it
+    comes within another, so a confirm that the candidate counts reaches
+    the coordinator within two bounds of the candidacy it confirms.  Were
+    the candidacy to lapse sooner, a round slowed by its coordinators
+    (two of three answering in most of a bound: server.py's knobs bound
+    each call at 2 s against a NOMINATION_TIMEOUT of 1 s) would have its
+    confirms refused, round after round.  At the default knobs the two
+    bounds are NOMINATION_TIMEOUT itself.  The lifetime decides only
+    which candidate a coordinator takes for its best nominee, never the
+    lease guard that keeps two leaders apart (elect_leader)."""
+    if not MAJORITY_ROUNDS:
+        return k.NOMINATION_TIMEOUT
+    return max(k.NOMINATION_TIMEOUT, 2 * election_rpc_bound(k))
+
+
 @dataclasses.dataclass
 class LeaderInfo:
     leader_id: int
@@ -264,7 +384,7 @@ class Coordinator:
         self._check_moved()
         now = asyncio.get_running_loop().time()
         self._nominations[candidate_id] = Nomination(
-            candidate_id, address, now + self.knobs.NOMINATION_TIMEOUT)
+            candidate_id, address, now + nomination_lifetime(self.knobs))
         if self._leader is not None and now < self._leader.lease_end:
             return [0, self._leader.leader_id, self._leader.address]
         best = self._best_nominee(now)
@@ -362,15 +482,18 @@ class CoordinatedState:
         majority succeeded.  Each call is individually bounded: a dead
         coordinator must cost at most the bound — derived from the knobs
         like elect_leader's — not stall the whole round (its vote just
-        doesn't count)."""
+        doesn't count); and the round returns once a majority has
+        succeeded, or no longer can (``quorum_round``).  Returning on a
+        majority is single-decree Paxos as it stands: a read needs a
+        majority's promises and a write a majority's acceptances."""
         timeout = (self.knobs.FAILURE_TIMEOUT * 2
                    if self.knobs is not None else 4.0)
 
         async def bounded(c):
             return await asyncio.wait_for(c, timeout)
 
-        results = await asyncio.gather(*(bounded(c) for c in calls),
-                                       return_exceptions=True)
+        results = await quorum_round([bounded(c) for c in calls],
+                                     tallied(lambda r: True, self._majority))
         ok = [r for r in results if not isinstance(r, BaseException)]
         if len(ok) < self._majority:
             real = [r for r in results if isinstance(r, FdbError)]
@@ -574,11 +697,23 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
     retry until ELECTION_TIMEOUT, then raise CoordinatorsUnreachable so
     the caller's outer loop takes over.  Every per-coordinator RPC is
     bounded well under the lease duration: an unreachable coordinator
-    must not delay a round past the winner's own lease."""
+    must not delay a round past the winner's own lease.
+
+    Each phase returns once its answers decide it (``quorum_round``,
+    the rules at ``quorum_replies``), so a coordinator that holds its
+    connection and answers nothing costs a round nothing once a majority
+    has answered.  That leaves the safety argument as it was: a
+    candidate leads only on a majority of True confirms, each a grant at
+    its own coordinator, and two majorities intersect at a coordinator
+    whose lease guard (``Coordinator.confirm``) refuses the second grant
+    while the first lease is unexpired; a call cut once its phase is
+    decided was never counted.  A confirm cut (or lost) may still grant
+    a lease the candidate does not count: a losing round's withdraw
+    waits for every coordinator that did not refuse the confirm."""
     from ..runtime.rng import DeterministicRandom
 
     k = knobs
-    rpc_timeout = min(k.LEADER_LEASE_DURATION / 4, k.FAILURE_TIMEOUT)
+    rpc_timeout = election_rpc_bound(k)
     majority = len(coordinators) // 2 + 1
     loop = asyncio.get_running_loop()
     # jitter decorrelates candidates' retry rounds; seeding off the
@@ -598,9 +733,10 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
     async def poll_leader() -> tuple[int, Any] | None:
         """Read-only leader check: a MAJORITY agreeing on one unexpired
         leader ⇒ (id, addr), else None."""
-        reads = await asyncio.gather(
-            *(bounded(c.read_leader()) for c in coordinators),
-            return_exceptions=True)
+        reads = await quorum_round(
+            [bounded(c.read_leader()) for c in coordinators],
+            tallied(lambda r: None if r is None
+                    else (r[0], _addr_key(r[1])), majority))
         tally: dict[tuple[int, Any], int] = {}
         for r in reads:
             if isinstance(r, BaseException) or r is None:
@@ -619,7 +755,7 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
     # park the election — rivals can never become best nominee.  After
     # two consecutive failed confirm rounds as the convergent nominee,
     # stand down: stop nominating long enough for our nominations to
-    # lapse (NOMINATION_TIMEOUT) so rivals converge, while still polling
+    # lapse (nomination_lifetime) so rivals converge, while still polling
     # read-only for the leader they elect.
     failed_confirms = 0
     # Round fence for confirm/withdraw: a withdraw delivered late (past a
@@ -637,12 +773,14 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
             return led
 
         # Phase 1: nominate everywhere; tally leaders and nominees.
-        noms = await asyncio.gather(
-            *(bounded(c.nominate(candidate_id, address))
-              for c in coordinators),
-            return_exceptions=True)
+        noms = await quorum_round(
+            [bounded(c.nominate(candidate_id, address))
+             for c in coordinators],
+            tallied(lambda r: (r[0], r[1], _addr_key(r[2])), majority))
         ok = [r for r in noms if not isinstance(r, BaseException)]
-        if len(ok) < majority:
+        failed = sum(1 for r in noms if isinstance(r, BaseException)
+                     and not isinstance(r, asyncio.CancelledError))
+        if failed > len(coordinators) - majority:
             from ..runtime.errors import CoordinatorsChanged
             if any(isinstance(r, CoordinatorsChanged) for r in noms):
                 # a retired quorum: surface the typed error so the caller
@@ -665,10 +803,10 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
         if bestn is not None and bestn[1] >= majority \
                 and bestn[0][0] == candidate_id:
             round_id += 1
-            confs = await asyncio.gather(
-                *(bounded(c.confirm(candidate_id, round_id))
-                  for c in coordinators),
-                return_exceptions=True)
+            confs = await quorum_round(
+                [bounded(c.confirm(candidate_id, round_id))
+                 for c in coordinators],
+                tallied(granted, majority))
             if sum(1 for r in confs if r is True) >= majority:
                 return candidate_id, address
             failed_confirms += 1
@@ -678,17 +816,18 @@ async def elect_leader(coordinators: list, candidate_id: int, address: Any,
             # lease for LEADER_LEASE_DURATION.  Safe: we know we lost
             # round_id, and the fence stops a late-delivered withdraw
             # from revoking a lease we win in a later round.
-            await asyncio.gather(
-                *(bounded(c.withdraw(candidate_id, round_id))
-                  for c in coordinators),
-                return_exceptions=True)
+            maybe = [i for i, r in enumerate(confs) if r is not False]
+            await quorum_round(
+                [bounded(c.withdraw(candidate_id, round_id))
+                 for c in coordinators],
+                lambda rs: all(rs[i] is not STILL_OUT for i in maybe))
             if failed_confirms >= 2:
                 # our confirm path is broken while our nominate path works
                 # (asymmetric partition): stand down so our nominations
                 # lapse and rivals can converge; keep watching read-only
                 # for whoever they elect
                 failed_confirms = 0
-                lapse_end = loop.time() + k.NOMINATION_TIMEOUT * 1.25
+                lapse_end = loop.time() + nomination_lifetime(k) * 1.25
                 while loop.time() < lapse_end:
                     await asyncio.sleep(k.ELECTION_BACKOFF)
                     led = await poll_leader()

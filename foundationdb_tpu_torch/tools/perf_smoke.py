@@ -3092,13 +3092,19 @@ def layers_seconds(deadline_s: float | None = None,
         tip = await tr.get_read_version()
         tr.reset()
         await consumer.wait_frontier(tip, timeout=LAYERS_WAIT_S)
-        verdict = None
-        for _ in range(40):
-            verdict = await checker.check()
-            if not any(verdict[k]["refused"]
-                       for k in ("index", "cache", "watches")):
-                break
-            await asyncio.sleep(0.5)
+
+        async def settled_check(kinds):
+            """A checker pass with a verdict on each of ``kinds``: a pass
+            whose checkpoint moved under its reads is refused, and
+            retried (up to 40 times, 0.5 s apart)."""
+            for _ in range(40):
+                verdict = await checker.check()
+                if not any(verdict[k]["refused"] for k in kinds):
+                    break
+                await asyncio.sleep(0.5)
+            return verdict
+
+        verdict = await settled_check(("index", "cache", "watches"))
         assert verdict["divergences"] == 0, (
             f"FALSE POSITIVE: the checker reported divergences on an "
             f"honest layer stack: {verdict}")
@@ -3114,7 +3120,7 @@ def layers_seconds(deadline_s: float | None = None,
         async def rot(tr):
             tr.set(canary_key, b"")
         await db.run(rot)
-        caught = await checker.check()
+        caught = await settled_check(("index",))
         assert caught["index"]["divergences"] == 1, (
             f"the rotted index row went uncaught: {caught}")
         stats["passes"] = checker.passes

@@ -3,12 +3,14 @@ three coordinator servers and a worker-only fourth, the CLI, the
 leader's SIGKILL with the monitor paused, the C ABI) run on its own,
 once for each mode named, each run's failover attempts printed.
 
-    python tests/phase25_runs.py majority,gathered,... [DEVICE] [--hangs N]
+    python tests/phase25_runs.py majority,gathered,stop,... [DEVICE] [--hangs N]
 
 A mode sets the client's cluster-state refresh for the run:
 ``majority`` is the port as it is (``core/cluster_client.py``
 returns once a majority of coordinators has answered), ``gathered``
-waits for every coordinator, as the JAX package does.  ``DEVICE`` is
+waits for every coordinator, as the JAX package does.  ``stop`` runs
+phase 32 instead, the port as it is: a fresh deployment whose elected
+leader's server is SIGSTOPped.  ``DEVICE`` is
 the servers' ``--device`` (``cuda``, the default, or ``cpu``).  One JSON
 line a run: the attempts ([start s after the kill, outcome, s]), the
 seconds from the kill to the first commit, what each timed-out attempt
@@ -33,7 +35,7 @@ sys.path.insert(0, REPO)
 
 def main(argv=None) -> int:
     import chip_smoke as cs
-    from foundationdb_tpu_torch.core import cluster_client
+    from foundationdb_tpu_torch.core import coordination
 
     argv = sys.argv[1:] if argv is None else list(argv)
     hangs = None
@@ -55,11 +57,15 @@ def main(argv=None) -> int:
     cs._START[0] = time.perf_counter()
     hung = 0
     for i, mode in enumerate(modes):
-        cluster_client.MAJORITY_REFRESH = mode == "majority"
+        coordination.MAJORITY_ROUNDS = mode != "gathered"
         t = time.perf_counter()
         try:
-            r = cs.deployment_phase(dev)
-            line = cs.check_deployment_phase(r, card)
+            if mode == "stop":
+                r = cs.stopped_leader_phase(dev)
+                line = cs.check_stopped_leader_phase(r, card)
+            else:
+                r = cs.deployment_phase(dev)
+                line = cs.check_deployment_phase(r, card)
             rec = {"run": i, "mode": mode, "ok": True,
                    "attempts": r["failover_attempts"],
                    "failover_s": r["failover_s"],

@@ -501,8 +501,8 @@ def _child(name: str, path: str, kills: int) -> None:
     sys.path.insert(0, _REPO)
     P = package(name)
     if name == PORT:
-        from foundationdb_tpu_torch.core import cluster_client
-        cluster_client.MAJORITY_REFRESH = False
+        from foundationdb_tpu_torch.core import coordination
+        coordination.MAJORITY_ROUNDS = False
     log = P.trace.TraceLog(path=path, min_severity=P.trace.Severity.DEBUG)
     P.trace.set_trace_log(log)
 

@@ -88,13 +88,14 @@ LEFT_OUT = {"ResolverMetrics": {"WindowOccupancy"},
 
 def gathered_child_source() -> str:
     """The port's child (``chip_smoke.sim_child_source``) with its client
-    refresh waiting for every coordinator, as the reference's does."""
+    refresh and its election rounds waiting for every coordinator, as the
+    reference's do."""
     anchor = "    sys.path.insert(0, _REPO)\n"
     src = cs.sim_child_source(REPO)
     assert src.count(anchor) == 1
     return src.replace(anchor, anchor + (
-        "    from foundationdb_tpu_torch.core import cluster_client\n"
-        "    cluster_client.MAJORITY_REFRESH = False\n"))
+        "    from foundationdb_tpu_torch.core import coordination\n"
+        "    coordination.MAJORITY_ROUNDS = False\n"))
 
 
 def child_runs(name: str, file: str, test: str, mp, tmp) -> list:

@@ -60,12 +60,12 @@ def _summary(capsys) -> dict:
     return json.loads(out[out.index("{"):])
 
 
-# sim.run_one as ``python -m`` runs it, with the client's refresh waiting
-# for every coordinator, as the reference's does
+# sim.run_one as ``python -m`` runs it, with the client's refresh and the
+# election rounds waiting for every coordinator, as the reference's do
 GATHERED_RUN_ONE = (
     "import runpy\n"
-    "from foundationdb_tpu_torch.core import cluster_client\n"
-    "cluster_client.MAJORITY_REFRESH = False\n"
+    "from foundationdb_tpu_torch.core import coordination\n"
+    "coordination.MAJORITY_ROUNDS = False\n"
     "runpy.run_module('foundationdb_tpu_torch.sim.run_one', "
     "run_name='__main__')\n")
 

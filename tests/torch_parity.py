@@ -520,15 +520,18 @@ def patch_port(mp, device=None, retire: bool = True,
 
 
 def gathered(mp) -> None:
-    """The port's client refresh without its repair of the reference's
-    wait for the slowest coordinator (ROADMAP C3):
-    ``fetch_cluster_state`` waits for every coordinator's reply, as the
-    reference's does.  A refresh that returns on a majority cancels the
-    last coordinator's request, whose reply then draws nothing from the
-    simulated network, so with the repair on a refreshing scenario's
-    schedule parts from the reference's."""
-    cc = importlib.import_module(f"{PORT}.core.cluster_client")
-    mp.setattr(cc, "MAJORITY_REFRESH", False)
+    """The port's client refresh and its coordinator rounds without their
+    repairs of the reference's wait for the slowest coordinator (ROADMAP
+    C3 and C4): ``fetch_cluster_state``, each phase of ``elect_leader``'s
+    rounds, the leader's lease renewal and the coordinated state's reads
+    and writes wait for every coordinator's reply, and a nomination lives
+    NOMINATION_TIMEOUT, as the reference's do (``MAJORITY_ROUNDS`` off).
+    A phase that returns on a majority cancels the last coordinator's
+    request, whose reply then draws nothing from the simulated network,
+    so with the repairs on a scenario's schedule parts from the
+    reference's."""
+    co = importlib.import_module(f"{PORT}.core.coordination")
+    mp.setattr(co, "MAJORITY_ROUNDS", False)
 
 
 def unmasked(mp) -> None:
