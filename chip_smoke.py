@@ -221,22 +221,23 @@ commit and storage paths on the card and exits non-zero on any failure:
    B8 its latency bound: one probe's search chain at N = 2**24 measured
    in phase 3; K1 and K3 their times at the simulator's shapes); the
    last line is the result;
-29. (started after phase 17; phases 14, 15, 18-25 and 32 run beside its
+29. (started after phase 17; phases 14, 15, 18-25, 32 and 33 run beside its
    host stages) the north star in full as its own process on the card:
    ``python3 -m foundationdb_tpu_torch.bench.north_star`` (the resolver
    at BASELINE config 2, 4096 batches x 64 txns over 1M 32-byte keys,
    cuda against cpp; the commit path end to end; YCSB-F and TPC-C; the
    multi-resolver and the device plane in their own processes; the host
    stages; the abort-parity gate).  Its device stages hold the card
-   alone, with phase 26's CPU twin and phases 5 and 8's CPU plain
-   replays beside them on the host.  Once
+   alone but for phase 31's six short children, with phase 26's CPU
+   twin and phases 5 and 8's CPU plain replays beside them on the
+   host.  Once
    its host stages (host-bound, one or two cores; the card serves their
    storage servers' reads and the abort-parity gate) are past
    ``read_point`` (one read version held for 5 s of reads against a 5 s
    MVCC window, which a contended host pushes out of it), this process
    runs beside the rest ``--quick`` (one JSON line, exit 0) and
-   phases 14, 15, 18-25 and 32, and waits for its end before phase 26: the
-   seconds of those phases, 14's and 15's rates and the north star's
+   phases 14, 15, 18-25, 32 and 33, and waits for its end before phase
+   26: the seconds of those phases, 14's and 15's rates and the north star's
    host-stage numbers of this run are taken under that contention.
    Gates: exit 0, no stage error or timeout, ``backend_used`` cuda,
    every verdict gate true with 0 mismatches against cpp, 0 dictionary
@@ -258,7 +259,9 @@ commit and storage paths on the card and exits non-zero on any failure:
    stage (the mesh's routed side in one rerun, its ratio being a
    wall-clock gate), each held to its plain version at tolerance 0;
    the launches in ``launches_by_phase["30"]``;
-31. (after phase 27) the simulator's device modes: tests/
+31. (after phases 5 and 8's CPU plain replays, beside phase 29's
+   device stages, while this process waits for its ``read_point``) the
+   simulator's device modes: tests/
    test_sim_determinism.py's child (a seeded 5-machine simulated
    cluster with the device pipeline on), its imports re-rooted at the
    port, in its ``default``, ``mesh_on`` (two resolvers, routed) and
@@ -277,7 +280,19 @@ commit and storage paths on the card and exits non-zero on any failure:
    them, the first must commit; then SIGCONT and SIGKILL, the monitor
    restarts the server, every acknowledged write reads back, no
    connection to a live server was cut for silence, and SIGTERM stops
-   every server with exit code 0.
+   every server with exit code 0;
+33. (in a process of its own, started before phase 23 and collected
+   after phase 32, so that it runs beside them; the smoke's time limit
+   left no room for it in sequence) a fresh deployment as phase 25
+   builds it, the monitor left running, and the three coordinators'
+   servers SIGKILLed in turn, each restarted at once, empty (ROADMAP
+   C6): each attempt of a long-lived client's commit after each kill
+   printed, the first must commit; then a fresh CLI reads back every
+   acknowledged write; the server logs found one database; SIGTERM
+   stops every server with exit code 0.  A shard whose replicas were on
+   two servers killed in turn has none left (ROADMAP C2): a first
+   attempt or a read-back that waits on it passes only where the server
+   logs show it (``rolling_errors``).
 
 Each phase's closing line goes to stderr too, after the seconds since
 the start; a wait on a child process (the north star, the farm, phase
@@ -342,11 +357,11 @@ SIM_CHILD = os.path.join("tests", "test_sim_determinism.py")
 SIM_MODES = ("default", "mesh_on", "devplane")
 SIM_DIGESTS = {
     "default":
-        "4d6351055d4d346f73be0abffd510a94d6f6656064fa9c0329852875a3c32cb2",
+        "bbe9c3d06c371618a133e728633511b06bb5151c9c5ab94d436f193668e303be",
     "mesh_on":
-        "1c00868ee98dcb8f455383318e8d785bcbbb8d7700be929e03d8eabe5bdaeda8",
+        "c4df7ec1e1179123fa6bdf6768ed77e9d8c141c753256a279509a5c8d69e434f",
     "devplane":
-        "4d6351055d4d346f73be0abffd510a94d6f6656064fa9c0329852875a3c32cb2",
+        "bbe9c3d06c371618a133e728633511b06bb5151c9c5ab94d436f193668e303be",
 }
 CARD = ""          # nvidia-smi's name and power limit, set by main
 # the compact per-kernel and per-phase summary printed before the kernels
@@ -3894,7 +3909,8 @@ class Deployment:
 
     def stop(self) -> dict:
         """SIGTERM to the monitor (resumed first, if paused); what it and
-        its servers said about stopping."""
+        its servers said about stopping, and each server log that holds
+        a traceback with its first one (``tracebacks``)."""
         import signal
         alive = self.mon.poll() is None
         self.mon.send_signal(signal.SIGCONT)
@@ -3905,13 +3921,16 @@ class Deployment:
             self.mon.kill()
             self.mon.wait()
         log = self._read("monitor.err")
+        logs = {f: self._read(f) for f in sorted(os.listdir(self.tmp))
+                if f.startswith("fdbserver.")}
         return {"alive": alive, "rc": self.mon.returncode, "log": log,
                 "servers": self.started(),
                 "stopped": [ln for ln in log.splitlines()
                             if "stopped rc=" in ln],
-                "tracebacks": [f for f in os.listdir(self.tmp)
-                               if f.startswith("fdbserver.")
-                               and "Traceback" in self._read(f)]}
+                "tracebacks": {
+                    f: t[t.rfind("\n", 0, max(t.index("Traceback") - 1, 0))
+                         + 1:][:3000]
+                    for f, t in logs.items() if "Traceback" in t}}
 
 
 async def elected_leader(d: Deployment) -> int:
@@ -3940,21 +3959,62 @@ async def elected_leader(d: Deployment) -> int:
     return leader
 
 
+async def attempt(cli_, waits, script: str, tk: float, victim_port: int,
+                  victim: int, attempts: list, timed_out: list, label: str,
+                  watch=None):
+    """One ``script`` through ``cli_`` under 30 s, ``tk`` the time of the
+    signal to server ``victim_port``'s process ``victim``: appends [start
+    s after the signal, outcome, s] to ``attempts`` and prints it; a
+    timed-out attempt also appends to ``timed_out`` what it was awaiting
+    (``waits``), each coordinator's published epoch, the client's view's
+    epoch, the roles that view places on the victim, the victim's state,
+    and with a ``KillWatch`` its sockets.  Returns the CLI's output, or
+    "timeout"; raises what the CLI raised."""
+    ta = time.perf_counter()
+    try:
+        got = await asyncio.wait_for(cli_.execute(script), 30)
+        outcome = "committed" if got == "Committed" else str(got)[:120]
+    except asyncio.TimeoutError:
+        got = outcome = "timeout"
+        report = waits.report(time.perf_counter())
+        rec = {"attempt": len(attempts), "awaiting": report}
+        if watch is not None:
+            rec["sockets"] = watch.at(awaited_ports(report))
+        rec.update({
+            "published_epochs": await published_epochs(cli_.coordinators),
+            "view_epoch": cli_.view.epoch,
+            "killed_server_roles": waits.roles_at(cli_.view.state,
+                                                  victim_port),
+            "killed_process": exit_state(victim)})
+        timed_out.append(rec)
+        say(f"{label}: attempt {len(attempts)} timed out: "
+            f"{json.dumps(rec)}")
+    except Exception as e:
+        outcome = type(e).__name__
+        raise
+    finally:
+        attempts.append([round(ta - tk, 3), outcome,
+                         round(time.perf_counter() - ta, 3)])
+        say(f"{label}: attempt {len(attempts) - 1} [start s after the "
+            f"signal, outcome, s] {json.dumps(attempts[-1])}")
+    return got
+
+
 async def attempts_after(d: Deployment, cli_, waits, victim_port: int,
                          sig: int, out: dict, label: str,
                          budget: float) -> None:
     """Signal ``sig`` (SIGKILL or SIGSTOP) to server ``victim_port``'s
     process with the monitor paused, then ``set after failover`` through
     ``cli_`` until it commits, each attempt under 30 s and 0.25 s after
-    the last, each printed: ``out``'s ``failover_attempts`` [start s after
-    the signal, outcome, s], ``timed_out`` (what each timed-out attempt
-    was awaiting, ``waits``), ``failover_s`` and ``kill_watch``.  Fails
-    after ``budget`` s without a commit.  A stopped server gets SIGCONT
-    and SIGKILL after the attempts; then the monitor resumes."""
+    the last (``attempt``), each printed: ``out``'s
+    ``failover_attempts``, ``timed_out``, ``failover_s`` and
+    ``kill_watch``.  Fails after ``budget`` s without a commit.  A
+    stopped server gets SIGCONT and SIGKILL after the attempts; then the
+    monitor resumes."""
     import signal
     # the monitor paused while the survivors recover: a server restarted
-    # at once is an empty coordinator, which can strand the new
-    # generation (ROADMAP C)
+    # at once comes back an empty TLog and storage host (ROADMAP C2);
+    # phase 33 restarts the coordinators' servers at once
     os.kill(d.mon.pid, signal.SIGSTOP)
     attempts = out.setdefault("failover_attempts", [])
     watch = victim = None
@@ -3964,35 +4024,10 @@ async def attempts_after(d: Deployment, cli_, waits, victim_port: int,
         tk = time.perf_counter()
         watch = KillWatch(victim, victim_port, d.ports)
         while True:
-            ta = time.perf_counter()
-            try:
-                got = await asyncio.wait_for(
-                    cli_.execute("set after failover"), 30)
-                outcome = "committed" if got == "Committed" \
-                    else str(got)[:120]
-            except asyncio.TimeoutError:
-                got = outcome = "timeout"
-                report = waits.report(time.perf_counter())
-                out.setdefault("timed_out", []).append({
-                    "attempt": len(attempts),
-                    "awaiting": report,
-                    "sockets": watch.at(awaited_ports(report)),
-                    "published_epochs": await published_epochs(
-                        cli_.coordinators),
-                    "view_epoch": cli_.view.epoch,
-                    "killed_server_roles": waits.roles_at(
-                        cli_.view.state, victim_port),
-                    "killed_process": exit_state(victim)})
-                say(f"{label}: attempt {len(attempts)} timed out: "
-                    f"{json.dumps(out['timed_out'][-1])}")
-            except Exception as e:
-                outcome = type(e).__name__
-                raise
-            finally:
-                attempts.append([round(ta - tk, 3), outcome,
-                                 round(time.perf_counter() - ta, 3)])
-                say(f"{label}: attempt {len(attempts) - 1} [start s after "
-                    f"the signal, outcome, s] {json.dumps(attempts[-1])}")
+            got = await attempt(cli_, waits, "set after failover", tk,
+                                victim_port, victim, attempts,
+                                out.setdefault("timed_out", []), label,
+                                watch)
             if got == "Committed":
                 out["failover_s"] = time.perf_counter() - tk
                 break
@@ -4378,6 +4413,413 @@ def check_stopped_leader_phase(r: dict, card: str) -> str:
             f"{r['failover_s']:.3f} s after it, restart "
             f"{r['leader_restart_s']:.3f} s, {len(r['read_back'])} keys read "
             f"back, every server stopped rc=0 ({card})")
+
+
+# --------------------------------------------------------------------------
+# phase 33: a rolling restart of the coordinators' servers (ROADMAP C6)
+
+# seconds from a kill's last attempt to the next kill
+ROLLING_GAP_S = 5.0
+# seconds of attempts after a kill before the next kill: one attempt of
+# 30 s, or more if they end sooner
+ROLLING_BUDGET_S = 30.0
+# seconds the fresh CLI's read-back of every acknowledged write may take
+ROLLING_READ_S = 30.0
+
+
+RECOVERY_EVENTS = ('"RecoveryComplete"', '"RecoveryState"',
+                   '"RecoveryFailed"', '"StorageMoveRecruited"',
+                   '"FetchKeysComplete"')
+
+
+def recovery_record(tmp: str, ports: list, replication: int = 2) -> dict:
+    """What a deployment's server logs (``fdbserver.<port>.log`` under
+    ``tmp``, each appended to by every process the monitor started for
+    that server) say of its recoveries, in the order of their times:
+    ``recovery_complete``, [server index, epoch] of each
+    ``RecoveryComplete``; ``foundings``, the founding at boot and one
+    more for each ``RecoveryState`` step ``locking_cstate`` with
+    ``PrevEpoch`` 0 after the first ``accepting_commits`` (a recovery
+    that read the coordinated state as empty, and so began a new, empty
+    database), each of those in ``refounded`` as [server index, epoch];
+    ``unfetched``, [tag, begin, end] (the keys as Python literals) of
+    each storage tag whose last ``StorageMoveRecruited`` (a recovery's
+    new replica of a shard, filled from a replica of the last
+    generation) no ``FetchKeysComplete`` followed: its source was a
+    replica that a restart had emptied, and where it was the shard's
+    last, a read in the shard waits for good (ROADMAP C2;
+    ``unfetched_holds``);
+    ``no_source``, [server index, time] of the first recovery attempt
+    that failed on a shard with no live replica to fill a new one from,
+    after which none completed (C2: every later attempt fails alike), or
+    None;
+    ``unserved``, [begin, end] of each shard of the boot layout (the
+    controller's even split, teams of ``replication`` tags in order)
+    none of whose tags the last completed recovery made active: each
+    replica it still counts sat on a server that was down at that
+    recovery, and a server restarts without its storage, so a read in
+    the shard waits for good (C2; ``unfetched_holds``)."""
+    events = []
+    for i, port in enumerate(ports):
+        path = os.path.join(tmp, f"fdbserver.{port}.log")
+        if not os.path.exists(path):
+            continue
+        with open(path, errors="replace") as f:
+            for ln in f:
+                if not any(e in ln for e in RECOVERY_EVENTS):
+                    continue
+                try:
+                    ev = json.loads(ln)
+                except ValueError:
+                    continue
+                events.append((ev.get("Time", 0.0), i, ev))
+    events.sort(key=lambda e: e[:2])
+    complete, refounded, accepting = [], [], False
+    no_source = None
+    moved: dict = {}
+    boot, active = None, {}
+    for t, i, ev in events:
+        kind = ev.get("Type")
+        if kind == "RecoveryFailed":
+            if ev.get("Msg") == "no live source for moved shard" \
+                    and no_source is None:
+                no_source = [i, t]
+        elif kind == "RecoveryComplete":
+            complete.append([i, ev.get("Epoch")])
+            no_source = None
+        elif kind == "StorageMoveRecruited":
+            moved[ev.get("Tag")] = [ev.get("Begin"), ev.get("End")]
+        elif kind == "FetchKeysComplete":
+            moved[ev.get("Tag")] = None
+        elif ev.get("Step") == "writing_cstate" and boot is None:
+            boot = ev.get("StorageTags")
+        elif ev.get("Step") == "accepting_commits":
+            accepting = True
+            active[ev.get("Epoch")] = set(ev.get("ActiveTags", ()))
+        elif ev.get("Step") == "locking_cstate" and accepting \
+                and ev.get("PrevEpoch") == 0:
+            refounded.append([i, ev.get("Epoch")])
+    return {"recovery_complete": complete, "foundings": 1 + len(refounded),
+            "refounded": refounded,
+            "unfetched": sorted([t, *r] for t, r in moved.items() if r),
+            "no_source": no_source,
+            "unserved": unserved_shards(boot, active.get(
+                complete[-1][1] if complete else None), replication)}
+
+
+def unserved_shards(boot: list | None, active: set | None,
+                    replication: int) -> list:
+    """[begin, end] (Python literals) of each shard of the boot layout
+    (``boot``, the first generation's storage tags, split as the
+    controller splits them: ``ShardMap.even`` over teams of
+    ``replication`` consecutive tags) with no tag in ``active``."""
+    from foundationdb_tpu_torch.core.shard_map import ShardMap
+    if not boot or active is None:
+        return []
+    teams = [boot[i:i + replication] for i in range(0, len(boot),
+                                                    replication)]
+    m = ShardMap.even(len(teams), teams)
+    edges = [b"", *m.boundaries, m.keyspace_end]
+    return [[repr(edges[s]), repr(edges[s + 1])]
+            for s, team in enumerate(teams) if not active & set(team)]
+
+
+def rolling_errors(r: dict) -> list:
+    """The gates of a rolling restart's record (``rolling_kills``, its
+    read-back, ``recovery_record``, the monitor's ``stopped`` lines and
+    exit code): one founding; the first attempt after each kill commits,
+    unless by the end of its attempts recoveries had begun to fail for
+    good on a shard with no replica left (``no_source``, ROADMAP C2);
+    every acknowledged write reads back (``read_back_error``); every
+    server stops rc=0 on SIGTERM.  Returns the failures, each a line."""
+    rec, errs = r["recoveries"], []
+    stuck = rec["no_source"]
+    if rec["foundings"] != 1:
+        errs.append(f"a recovery founded a second, empty database: "
+                    f"{rec['refounded']}")
+    for i, k in enumerate(r["kills"]):
+        last = k["attempts"][-1]
+        if k["attempts"][0][1] != "committed" and not (
+                stuck and stuck[1] <= k["killed_at"] + last[0] + last[2]):
+            errs.append(f"the first attempt after kill {i} did not "
+                        f"commit: {k['attempts']}")
+    err = read_back_error(r["read_back"], rec, r["acked"])
+    if err is not None:
+        errs.append(err)
+    if r["monitor_rc"] != 0 or len(r["stopped"]) != 4 or not all(
+            ln.endswith("rc=0") for ln in r["stopped"]):
+        errs.append(f"the monitor or a server did not stop cleanly on "
+                    f"SIGTERM: rc {r['monitor_rc']}, {r['stopped']}")
+    return errs
+
+
+def read_back_of(got: str | None, acked: dict) -> dict:
+    """The record of a fresh CLI's ``get`` of each of ``acked``'s keys in
+    sorted order (``acked``: key to value, as text), from what it printed
+    (``got``: its output, or "rc=N ..." where it exited with an error;
+    None where it did not end within ROLLING_READ_S): ``{"wrong": {key:
+    what the CLI printed}}``, ``{"failed": the end of its output}`` or
+    ``{"hung": s}``."""
+    if got is None:
+        return {"hung": ROLLING_READ_S}
+    lines = got.rstrip("\n").split("\n")
+    if got.startswith("rc=") or len(lines) != len(acked):
+        return {"failed": got[-400:]}
+    return {"wrong": {k: g for k, g in zip(sorted(acked), lines)
+                      if g != f"`{k}' is `{acked[k]}'"}}
+
+
+def read_back_error(rb: dict, rec: dict, acked: dict) -> str | None:
+    """Why a rolling restart's read-back of its acknowledged writes
+    (``acked``; ``rb``, ``read_back_of``'s record) fails its gate, or
+    None.  A wrong or missing value always fails.  The signs of a shard left
+    without a replica (ROADMAP C2, not a fault of the coordinated state)
+    excuse the rest: a CLI that failed on ``no storage team for key``
+    (the shard's every replica dropped from its team), and one that hung
+    where the recovery record shows a new replica of an acknowledged
+    key's shard that never filled (``unfetched``), a shard of one whose
+    every replica the last generation counts was lost to a restart
+    (``unserved``), or a recovery that could not proceed for want of a
+    source (``no_source``)."""
+    if "failed" in rb:
+        return None if "no storage team for key" in rb["failed"] \
+            else f"the read-back failed: {rb['failed']}"
+    if "hung" not in rb:
+        return f"acknowledged writes read back wrong: {rb['wrong']}" \
+            if rb["wrong"] else None
+    if rec["no_source"] or any(unfetched_holds(rec, k.encode())
+                               for k in acked):
+        return None
+    return (f"the read-back hung {rb['hung']} s, and the server logs "
+            f"show no shard left without a replica: {rec}")
+
+
+def unfetched_holds(rec: dict, key: bytes) -> bool:
+    """Whether ``key`` lies in a shard whose new replica
+    ``recovery_record`` found never filled (``unfetched``), or in one
+    whose every replica the last generation counts was lost to a restart
+    (``unserved``)."""
+    import ast
+    return any(ast.literal_eval(b) <= key < ast.literal_eval(e)
+               for *_, b, e in rec["unfetched"] + rec["unserved"])
+
+
+async def rolling_kills(cli_, waits, victims: list, ports: list, pid_of,
+                        out: dict, label: str, budget: float) -> None:
+    """A rolling restart under a running monitor, through one long-lived
+    client ``cli_``: after its commit of ``rolling/start``, each server of
+    ``victims`` (ports) in turn is SIGKILLed (its process
+    ``pid_of(port)``), ROLLING_GAP_S after the last attempt that followed
+    the previous kill; the monitor restarts it at once, an empty
+    coordinator, TLog and storage host.  After each kill ``set
+    rolling/<i> after<i>`` goes through ``cli_`` until it commits or
+    ``budget`` s have passed (``attempt``, 0.25 s apart).  ``out["kills"]``:
+    each kill's victim (its index in ``ports``), ``killed_at`` (the
+    monotonic clock, the servers' trace times), attempts, timed-out
+    attempts' records and ``failover_s`` (None: no commit within the
+    budget); ``out["acked"]``: each key the client committed, with its
+    value."""
+    import signal
+    acked = out.setdefault("acked", {})
+    got = await asyncio.wait_for(cli_.execute("set rolling/start 1"), 60)
+    if got != "Committed":
+        raise RuntimeError(f"{label}: the client's first commit: {got}")
+    acked["rolling/start"] = "1"
+    kills = out.setdefault("kills", [])
+    last = time.perf_counter()
+    for i, port in enumerate(victims):
+        await asyncio.sleep(max(0.0, last + ROLLING_GAP_S
+                                - time.perf_counter()))
+        victim = pid_of(port)
+        os.kill(victim, signal.SIGKILL)
+        tk = time.perf_counter()
+        k = {"victim": ports.index(port), "killed_at": time.monotonic(),
+             "attempts": [], "timed_out": [], "failover_s": None}
+        kills.append(k)
+        key, value = f"rolling/{i}", f"after{i}"
+        while True:
+            try:
+                got = await attempt(cli_, waits, f"set {key} {value}", tk,
+                                    port, victim, k["attempts"],
+                                    k["timed_out"], f"{label}, kill {i}")
+            except Exception:  # noqa: BLE001 — recorded as its outcome
+                got = None
+            if got == "Committed":
+                k["failover_s"] = time.perf_counter() - tk
+                acked[key] = value
+                break
+            if time.perf_counter() - tk > budget:
+                break
+            await asyncio.sleep(0.25)
+        last = time.perf_counter()
+
+
+def rolling_phase(dev_name: str, keep: str | None = None) -> dict:
+    """Phase 33, a fresh deployment as phase 25 builds it
+    (``Deployment``): the first commit through the CLI and 16 writes;
+    then, with the monitor running, the three coordinators' servers
+    SIGKILLed in turn, each restarted at once, empty (``rolling_kills``,
+    through one long-lived client); every acknowledged write read back
+    through a fresh CLI; what the server logs say of the recoveries
+    (``recovery_record``); SIGTERM.  With ``keep`` the run's files
+    (the server logs among them) stay in a new directory there."""
+    from foundationdb_tpu_torch.cli import open_cli
+    from foundationdb_tpu_torch.rpc.stubs import ROLE_METHODS
+    from foundationdb_tpu_torch.rpc.transport import WLTOKEN_COORDINATOR
+    from foundationdb_tpu_torch.runtime.knobs import Knobs
+    from foundationdb_tpu_torch.runtime.trace import (TraceLog,
+                                                      get_trace_log,
+                                                      set_trace_log)
+
+    out: dict = {"client_pids": []}
+    t_phase = time.perf_counter()
+    with (contextlib.nullcontext(tempfile.mkdtemp(dir=keep)) if keep
+          else tempfile.TemporaryDirectory()) as tmp:
+        prev_log = get_trace_log()
+        set_trace_log(TraceLog(path=os.path.join(tmp, "client.jsonl")))
+        try:
+            d = Deployment(dev_name, os.path.join(tmp, "rolling"),
+                           out["client_pids"])
+            try:
+                d.until("set first 1", "Committed", 300)
+                out["first_commit_s"] = time.perf_counter() - d.t0
+                writes = {f"rolling/w{i:02d}": f"v{i}" for i in range(16)}
+                got = d.cli("; ".join(f"set {k} {v}"
+                                      for k, v in writes.items()))
+                if got.split() != ["Committed"] * 16:
+                    fail(f"the CLI's writes: {got}")
+                out["acked"] = {"first": "1", **writes}
+
+                async def rolling():
+                    cli_ = await open_cli(d.cf_path, Knobs(), timeout=60)
+                    waits = OutstandingRequests(
+                        cli_.view.transport, lambda: cli_.view,
+                        ROLE_METHODS, WLTOKEN_COORDINATOR)
+                    try:
+                        await rolling_kills(
+                            cli_, waits, d.ports[:3], d.ports,
+                            lambda p: d.started()[p][-1], out,
+                            "rolling restart", left(ROLLING_BUDGET_S))
+                    finally:
+                        await cli_.view.transport.close()
+                t = time.perf_counter()
+                try:
+                    asyncio.run(asyncio.wait_for(rolling(), left(600)))
+                except (RuntimeError, asyncio.TimeoutError) as e:
+                    fail(f"phase 33: {e!r}")
+                out["kills_s"] = time.perf_counter() - t
+                # every server restarted before the read-back and the
+                # SIGTERM (one in its start-up would die of the signal)
+                for p in d.ports[:3]:
+                    d.up_after(p, 2, 120)
+                got = d.cli("; ".join(f"get {k}"
+                                      for k in sorted(out["acked"])),
+                            timeout=ROLLING_READ_S)
+                # rc -9: killed at its timeout
+                out["read_back"] = read_back_of(
+                    None if got.startswith("rc=-9 ") else got, out["acked"])
+            finally:
+                out["life"] = d.stop()
+                out["recoveries"] = recovery_record(d.tmp, d.ports)
+        finally:
+            get_trace_log().close()
+            set_trace_log(prev_log)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def rolling_child(dev_name: str, path: str, start: str) -> None:
+    """Phase 33 in a process of its own (``rolling_start``): its record
+    as JSON in ``path``; ``start`` is the smoke's start on the shared
+    monotonic clock, from which its waits count."""
+    _START[0] = float(start)
+    r = rolling_phase(dev_name)
+    with open(path, "w") as f:
+        json.dump(r, f)
+
+
+def rolling_start(tmp: str) -> dict:
+    """Start phase 33 on the card in a process of its own
+    (``rolling_child``, its process group killed if this process exits
+    first), so that it runs beside phases 23 and 24."""
+    import atexit
+    import signal
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "rolling.json")
+    with open(path + ".out", "w") as out, open(path + ".err", "w") as err:
+        p = subprocess.Popen(
+            [sys.executable, os.path.join(repo, "chip_smoke.py"),
+             "--rolling", "cuda", path, repr(_START[0])], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), stdout=out, stderr=err,
+            start_new_session=True)
+
+    def stop(p=p):
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    atexit.register(stop)
+    return {"p": p, "path": path, "stop": stop}
+
+
+def rolling_finish(h: dict) -> dict:
+    """Wait for phase 33's process (``rolling_start``) and print what it
+    printed; returns its record."""
+    try:
+        h["p"].wait(timeout=left(300))
+    except subprocess.TimeoutExpired:
+        h["stop"]()
+        fail("phase 33: still running at the smoke's deadline")
+    with open(h["path"] + ".out") as f:
+        for ln in f.read().splitlines():
+            say(ln)
+    if h["p"].returncode != 0:
+        with open(h["path"] + ".err") as f:
+            fail(f"phase 33: rc {h['p'].returncode}: {f.read()[-3000:]}")
+    with open(h["path"]) as f:
+        return json.load(f)
+
+
+def check_rolling_phase(r: dict, card: str) -> str:
+    """Phase 33's gates (``rolling_errors``): one founding; the first
+    attempt after each kill commits; every acknowledged write reads back
+    through a fresh CLI; every server stops rc=0 on SIGTERM and no
+    server log holds a traceback.  A shard left without a replica
+    (ROADMAP C2) excuses a first attempt and a read-back that wait on
+    it.  Returns its one-line result."""
+    life, rec, rb = r["life"], r["recoveries"], r["read_back"]
+    for i, k in enumerate(r["kills"]):
+        fo = k["failover_s"]
+        say(f"rolling restart: kill {i}, server {k['victim']}: attempts "
+            f"[start s after the SIGKILL, outcome, s] "
+            f"{json.dumps(k['attempts'])}, failover "
+            f"{'none' if fo is None else f'{fo:.3f} s'}; timed-out "
+            f"attempts {json.dumps(k['timed_out'])}")
+    say(f"rolling restart: RecoveryComplete [server, epoch] "
+        f"{json.dumps(rec['recovery_complete'])}; foundings "
+        f"{rec['foundings']} (later ones {json.dumps(rec['refounded'])}); "
+        f"new replicas never filled [tag, begin, end] "
+        f"{json.dumps(rec['unfetched'])}; recoveries stuck without a "
+        f"source since [server, time] {json.dumps(rec['no_source'])}; "
+        f"read-back of "
+        f"{len(r['acked'])} acknowledged keys {json.dumps(rb)}; monitor "
+        f"rc {life['rc']}, {life['stopped']}; server logs with a "
+        f"traceback {life['tracebacks']} ({card})")
+    errs = rolling_errors(dict(r, stopped=life["stopped"],
+                               monitor_rc=life["rc"]))
+    if life["tracebacks"] or not life["alive"]:
+        errs.append(f"the monitor had exited, or a server log holds a "
+                    f"traceback: {life['log'][-3000:]}")
+    if errs:
+        fail(f"phase 33: {'; '.join(errs)}")
+    back = f"{len(r['acked'])} keys read back" if "wrong" in rb \
+        else f"read-back {next(iter(rb))} (a shard without a replica: C2)"
+    firsts = [k["attempts"][0][1] for k in r["kills"]]
+    fos = [k["failover_s"] and round(k["failover_s"], 3) for k in r["kills"]]
+    return (f"phase 33: first commit {r['first_commit_s']:.3f} s, three "
+            f"coordinators' servers killed in turn in {r['kills_s']:.3f} s, "
+            f"first attempts {firsts} (failovers {fos} s), epochs completed "
+            f"{[e for _, e in rec['recovery_complete']]}, one founding, "
+            f"{back}, every server stopped rc=0 ({card})")
 
 
 # --------------------------------------------------------------------------
@@ -4920,12 +5362,13 @@ def perf_smoke_phase(dev) -> dict:
     ``cuda`` backend (K3 and K1): ``recover``, ``observe``, ``scrub`` and
     ``layers``.
     Each stage's launches are counted, its printed lines and the stats
-    of each of its ``*_seconds`` runs kept, and every B8 call (references to its own tensors) and every K3 and K1
-    call (copies, as ``held_to_plain_resolver`` takes them) recorded
+    of each of its ``*_seconds`` runs kept, and every B8 call
+    (references to its own tensors) and every K3 and K1 call (copies,
+    as ``held_to_plain_resolver`` takes them) recorded
     during its run and held to the plain version.  The mesh's run is
     not recorded (its routed/broadcast ratio is a wall-clock gate that
     copies on the stream would tilt): its routed side runs once more,
-    recorded.  The mesh's ratio pools three alternating routed/broadcast
+    recorded.  The mesh's ratio pools ten alternating routed/broadcast
     pairs after one unmeasured routed run (``perf_smoke.mesh_seconds``);
     each side's window, warmup and clients and the floor are the
     reference's."""
@@ -5571,13 +6014,14 @@ def main() -> None:
     lap("30")
 
     # 29. the north star in full as its own process, this process's
-    # tensors released first.  Its device stages hold the card alone;
-    # beside them on the host run phase 26's CPU twin (two farm children
-    # of one thread each) and phases 5 and 8's CPU plain replays (three
-    # threads).  Its host stages (after its device-plane stage) are
-    # host-bound; once read_point, whose one read version must outlive 5
-    # s of reads inside a 5 s MVCC window, has ended, --quick and phases
-    # 14, 15, 18-25 and 32 run beside them: the smoke as a whole does not fit
+    # tensors released first.  Its device stages hold the card alone
+    # but for phase 31's six short children; beside them on the host run
+    # phase 26's CPU twin (two farm children of one thread each), phases
+    # 5 and 8's CPU plain replays (three threads), then phase 31.  Its
+    # host stages (after its device-plane stage) are host-bound; once
+    # read_point, whose one read version must outlive 5 s of reads
+    # inside a 5 s MVCC window, has ended, --quick and phases 14, 15,
+    # 18-25, 32 and 33 run beside them: the smoke as a whole does not fit
     # its time limit in sequence.  The north star ends before phase 26's
     # card passes
     gc.collect()
@@ -5591,6 +6035,14 @@ def main() -> None:
     plain_replays()
     phase_done(f"phases 5 and 8's CPU plain replays: "
                f"{time.perf_counter() - t0:.1f} s ({CARD})")
+    # 31. the simulator's device modes, each in a fresh process, while
+    # the north star's device stages run: this process waits for its
+    # read_point in any case
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got31, line31 = check_sim_modes_phase(sim_modes_phase(tmp), CARD)
+    SUMMARY.append(line31)
+    phase_done(f"phase 31: {time.perf_counter() - t0:.1f} s ({CARD})")
     reached = north_star_wait(ns, "[bench] stage read_point:")
     if not reached and ns["p"].poll() is None:
         ns["stop"]()
@@ -5644,8 +6096,11 @@ def main() -> None:
     trace_dir.cleanup()
 
     # 23. the seeded chaos run on the card; 24. the spec files; both at
-    # the simulator's own shapes, each run with a trace file of its own
+    # the simulator's own shapes, each run with a trace file of its own.
+    # 33. beside them, in a process of its own: a fresh deployment whose
+    # coordinators' servers are killed in turn and restarted at once
     with tempfile.TemporaryDirectory() as tmp:
+        h33 = rolling_start(tmp)
         t0 = time.perf_counter()
         got23 = check_chaos_phase(chaos_phase(dev, tmp))
         phase_done(f"phase 23: {time.perf_counter() - t0:.1f} s ({CARD})")
@@ -5665,6 +6120,13 @@ def main() -> None:
         SUMMARY.append(check_stopped_leader_phase(
             stopped_leader_phase("cuda"), CARD))
         phase_done(f"phase 32: {time.perf_counter() - t0:.1f} s ({CARD})")
+        # 33's end (started before 23)
+        t0 = time.perf_counter()
+        r33 = rolling_finish(h33)
+        SUMMARY.append(check_rolling_phase(r33, CARD))
+        phase_done(f"phase 33: {r33['seconds']:.1f} s beside phases "
+                   f"23-32, waited {time.perf_counter() - t0:.1f} s for "
+                   f"its end ({CARD})")
         # the north star's end, before phase 26 takes the host
         t0 = time.perf_counter()
         r29 = north_star_finish(ns)
@@ -5689,12 +6151,6 @@ def main() -> None:
     got27 = r27["launches"]
     phase_done(f"phase 27: {time.perf_counter() - t0:.1f} s ({CARD})")
 
-    # 31. the simulator's device modes, each in a fresh process
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        got31, line31 = check_sim_modes_phase(sim_modes_phase(tmp), CARD)
-    SUMMARY.append(line31)
-    phase_done(f"phase 31: {time.perf_counter() - t0:.1f} s ({CARD})")
     report["prefix_search"]["max_abs_err"] = max(
         report["prefix_search"]["max_abs_err"], err20, err21)
 
@@ -5761,5 +6217,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sim-mode"] and len(sys.argv) == 5:
         sim_mode_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--rolling"] and len(sys.argv) == 5:
+        rolling_child(*sys.argv[2:])
     else:
         main()

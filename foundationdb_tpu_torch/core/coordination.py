@@ -57,12 +57,14 @@ GEN_ZERO: Generation = (0, 0)
 # answers decide it (``quorum_replies``), as the reference FoundationDB's
 # tryBecomeLeaderInternal waits on quorum(..., majority): a coordinator
 # that keeps its connection and answers nothing no longer costs every
-# round the per-call bound, and a nomination outlives the longest
+# round the per-call bound, a nomination outlives the longest
 # nominate-to-confirm span a candidate can count
-# (``nomination_lifetime``).  Off, every round waits for every
-# coordinator and a nomination lives NOMINATION_TIMEOUT, as in the JAX
-# package; the parity tests turn it off to hold the simulator's
-# schedule to the reference's event for event.
+# (``nomination_lifetime``), and a read of the coordinated state after
+# which no majority would accept its write reads once more
+# (``CoordinatedState.read``).  Off, every round waits for every
+# coordinator, a nomination lives NOMINATION_TIMEOUT and a read is made
+# once, as in the JAX package; the parity tests turn it off to hold the
+# simulator's schedule to the reference's event for event.
 MAJORITY_ROUNDS = True
 
 # a call ``quorum_replies`` has not seen end, as ``settled`` sees it
@@ -94,8 +96,13 @@ async def quorum_replies(calls: list, settled) -> list:
       one best nominee, or none can;
     - ``confirm`` and ``leader_heartbeat``: ``need`` replies of True, or
       they can no longer come;
-    - the coordinated state's ``read`` and ``write``: ``need`` replies,
-      or they can no longer come;
+    - the coordinated state's ``read``: ``need`` replies that carry an
+      accepted write (a write generation past ``GEN_ZERO``), or ``need``
+      replies can no longer come; a coordinator that restarted empty
+      answers at once with nothing, so replies without state wait for
+      every call to end (``holding``);
+    - the coordinated state's ``write``: ``need`` replies, or they can
+      no longer come;
     - ``withdraw``: a reply from every coordinator that may hold the
       round's lease, each whose ``confirm`` did not answer False."""
     tasks = [asyncio.ensure_future(c) for c in calls]
@@ -129,6 +136,22 @@ def tallied(key, need: int):
                 tally[v] = tally.get(v, 0) + 1
         top = max(tally.values(), default=0)
         return top >= need or top + out < need
+    return settled
+
+
+def holding(need: int):
+    """The ``settled`` rule of the coordinated state's read: ``need``
+    replies that carry an accepted write, or fewer than ``need`` calls
+    can still succeed.  The last write reached a majority, and any
+    ``need`` replies that carry state share a coordinator with it, which
+    holds that write or a later one; replies without state settle
+    nothing, since a coordinator restarted empty gives them at once while
+    one that holds the write may not have answered yet."""
+    def settled(replies: list) -> bool:
+        live = [r for r in replies if not isinstance(r, BaseException)]
+        held = sum(1 for r in live
+                   if r is not STILL_OUT and tuple(r[1]) != GEN_ZERO)
+        return held >= need or len(live) < need
     return settled
 
 
@@ -477,23 +500,20 @@ class CoordinatedState:
     def _majority(self) -> int:
         return len(self.coordinators) // 2 + 1
 
-    async def _quorum(self, calls) -> list:
+    async def _quorum(self, calls, settled) -> list:
         """Run calls; return successful results, raising unless a
         majority succeeded.  Each call is individually bounded: a dead
         coordinator must cost at most the bound — derived from the knobs
         like elect_leader's — not stall the whole round (its vote just
-        doesn't count); and the round returns once a majority has
-        succeeded, or no longer can (``quorum_round``).  Returning on a
-        majority is single-decree Paxos as it stands: a read needs a
-        majority's promises and a write a majority's acceptances."""
+        doesn't count); and the round returns once ``settled`` holds of
+        the replies (``quorum_round``)."""
         timeout = (self.knobs.FAILURE_TIMEOUT * 2
                    if self.knobs is not None else 4.0)
 
         async def bounded(c):
             return await asyncio.wait_for(c, timeout)
 
-        results = await quorum_round([bounded(c) for c in calls],
-                                     tallied(lambda r: True, self._majority))
+        results = await quorum_round([bounded(c) for c in calls], settled)
         ok = [r for r in results if not isinstance(r, BaseException)]
         if len(ok) < self._majority:
             real = [r for r in results if isinstance(r, FdbError)]
@@ -511,20 +531,39 @@ class CoordinatedState:
         """Phase-1 read from a majority: registers a fresh read generation
         and returns (read_gen, freshest accepted value).  After this, no
         writer at an older generation can commit at any majority (the two
-        majorities intersect at a coordinator holding our promise).
+        majorities intersect at a coordinator holding our promise).  The
+        round returns early only on a majority of replies that carry
+        state (``holding``): a coordinator that restarted empty must not
+        outvote one that still holds the latest write.
 
         If the freshest value is a quorum-change INTENT marker (written by
         change_coordinators phase 1), normal consumers get
         CoordinatorsChanged carrying the target set — the caller must
         complete or follow the move (ClusterHost does).  ``raw=True``
         (the mover itself) returns the marker."""
-        self._gen_counter += 1
-        gen = (self._gen_counter, self.my_id)
-        replies = await self._quorum(
-            [c.read(list(gen)) for c in self.coordinators])
-        # learn the newest generation around so the next read beats it
-        max_seen = max(r[0] for r in replies)
-        self._gen_counter = max(self._gen_counter, max_seen[0])
+        for again in ((True, False) if MAJORITY_ROUNDS else (False,)):
+            self._gen_counter += 1
+            gen = (self._gen_counter, self.my_id)
+            replies = await self._quorum(
+                [c.read(list(gen)) for c in self.coordinators],
+                holding(self._majority))
+            # learn the newest generation around so the next read beats it
+            max_seen = max(r[0] for r in replies)
+            self._gen_counter = max(self._gen_counter, max_seen[0])
+            # a coordinator whose promise or accepted write is at our
+            # generation or past it (a newer reader's, or an earlier
+            # process's of this id, which numbered its generations alike)
+            # will refuse our write; where that leaves no majority, read
+            # once more past every generation seen.  A write that cannot
+            # succeed still lands at a coordinator that restarted empty,
+            # and a client that reads it there holds a cluster state that
+            # was never committed, at the epoch and seq of the one that
+            # then is.
+            if not again or sum(tuple(r[0]) == gen and tuple(r[1]) < gen
+                                for r in replies) >= self._majority:
+                break
+            self._gen_counter = max(self._gen_counter,
+                                    max(tuple(r[1]) for r in replies)[0])
         self._read_gen = gen
         best = max(replies, key=lambda r: r[1])    # freshest accepted write
         value = best[2]
@@ -546,7 +585,8 @@ class CoordinatedState:
             raise RuntimeError("write() before read()")
         gen, self._read_gen = self._read_gen, None
         await self._quorum([c.write(list(gen), value)
-                            for c in self.coordinators])
+                            for c in self.coordinators],
+                           tallied(lambda r: True, self._majority))
 
     async def read_modify_write(self, update) -> Any:
         """Retry loop: read, apply ``update(old) -> new``, write."""

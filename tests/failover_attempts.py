@@ -23,16 +23,26 @@ leader's coordinator went unanswered for 22 s.  ``--stop-roles``
 SIGSTOPs, instead of killing the leader, a server other than the
 leader's that holds epoch 1's sequencer or a GRV proxy (ROADMAP C5): a
 peer that keeps its sockets open and answers nothing, which the client's
-GRV awaits, directly or through a live proxy.
+GRV awaits, directly or through a live proxy.  ``--rolling`` leaves
+the monitor running and SIGKILLs the three coordinators' servers in
+turn, each restarted at once, empty (``run_rolling``; ROADMAP C6);
+``--rolling all`` kills the worker-only server first.  ``--keep DIR``
+runs in DIR and keeps the logs.  ``--device cuda`` puts the port's
+servers of a ``--deployment`` on the card.
 
     python tests/failover_attempts.py foundationdb_tpu [--fresh-cli]
     python tests/failover_attempts.py foundationdb_tpu_torch [--fresh-cli]
     python tests/failover_attempts.py PACKAGE --deployment [--stop-leader]
     python tests/failover_attempts.py PACKAGE --deployment --hold-leader
     python tests/failover_attempts.py PACKAGE --deployment --stop-roles
+    python tests/failover_attempts.py PACKAGE --deployment --rolling [all]
+    python tests/failover_attempts.py foundationdb_tpu_torch --deployment \
+        [--rolling [all]] --device cuda
 
-The port's servers run ``--device cpu``.  Run on a host with no card,
-each package takes 20-60 s.
+The port's servers run ``--device cpu`` unless ``--device cuda``.  Run
+on a host with no card,
+each package takes 20-60 s; ``--rolling`` about 40 s, or several
+minutes where the client or the read-back hangs.
 """
 
 from __future__ import annotations
@@ -223,14 +233,56 @@ def started(tmp: str) -> dict:
     return pids
 
 
-def cli_exec(package: str, cf_path: str, script: str, env: dict) -> str:
+def cli_exec(package: str, cf_path: str, script: str, env: dict,
+             timeout: float = 120) -> str:
     """One ``python -m <package>.cli --exec`` run: its output, or its
     exit code and the end of its errors."""
     p = subprocess.run([sys.executable, "-m", f"{package}.cli", "-C",
                         cf_path, "--exec", script], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=timeout)
     return p.stdout if p.returncode == 0 else \
         f"rc={p.returncode} {p.stderr[-600:]}"
+
+
+def start_deployment(package: str, tmp: str, device: str = "cpu"
+                     ) -> tuple:
+    """Phase 25's layout for either package in ``tmp``: the package's
+    fdbmonitor over three coordinator servers and a worker-only fourth
+    (``min_workers=3,replication=2``, ``restart-delay = 0.5``, the port's
+    with ``device = <device>``), each server's log in ``tmp``.  Returns
+    (monitor, ports, cluster file, environment, start time)."""
+    imp = lambda m: importlib.import_module(f"{package}.{m}")  # noqa: E731
+    ClusterFile = imp("core.cluster_file").ClusterFile
+    NetworkAddress = imp("rpc.transport").NetworkAddress
+    ports = free_ports(4)
+    cf_path = os.path.join(tmp, "fdb.cluster")
+    ClusterFile("deploy", "t1", [NetworkAddress("127.0.0.1", p)
+                                 for p in ports[:3]]).save(cf_path)
+    conf = os.path.join(tmp, "fdbmonitor.conf")
+    dev = f"device = {device}\n" if package.endswith("_torch") else ""
+    with open(conf, "w") as f:
+        f.write(f"[general]\ncluster-file = {cf_path}\nrestart-delay = 0.5\n"
+                f"{dev}logdir = {tmp}\n" + "".join(
+                    f"[fdbserver.{p}]\nlisten = 127.0.0.1:{p}\n"
+                    "spec = min_workers=3,replication=2\n" for p in ports))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "monitor.err"), "wb") as ef:
+        mon = subprocess.Popen([sys.executable, "-m", f"{package}.monitor",
+                                "-C", conf], cwd=REPO, env=env,
+                               stdout=subprocess.DEVNULL, stderr=ef)
+    return mon, ports, cf_path, env, t0
+
+
+def first_commit(package: str, cf_path: str, env: dict, mon,
+                 t0: float) -> float:
+    """Seconds from ``t0`` to the first ``set first 1`` the CLI commits."""
+    while "Committed" not in cli_exec(package, cf_path, "set first 1", env):
+        if time.perf_counter() - t0 > 300 or mon.poll() is not None:
+            raise RuntimeError("no first commit through the CLI")
+        time.sleep(0.5)
+    return round(time.perf_counter() - t0, 3)
 
 
 class NoTarget(RuntimeError):
@@ -241,8 +293,8 @@ class NoTarget(RuntimeError):
 
 
 def run_deployment(package: str, tmp: str, stop_leader: bool = False,
-                   hold_leader: bool = False,
-                   stop_roles: bool = False) -> dict:
+                   hold_leader: bool = False, stop_roles: bool = False,
+                   device: str = "cpu") -> dict:
     """Phase 25's first lifetime up to its failover, for either package:
     the package's fdbmonitor over three coordinator servers and a
     worker-only fourth (``min_workers=3,replication=2``, the port's with
@@ -272,24 +324,7 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
     ClusterFile = imp("core.cluster_file").ClusterFile
     NetworkAddress = imp("rpc.transport").NetworkAddress
     trace = imp("runtime.trace")
-    ports = free_ports(4)
-    cf_path = os.path.join(tmp, "fdb.cluster")
-    ClusterFile("deploy", "t1", [NetworkAddress("127.0.0.1", p)
-                                 for p in ports[:3]]).save(cf_path)
-    conf = os.path.join(tmp, "fdbmonitor.conf")
-    device = "device = cpu\n" if package.endswith("_torch") else ""
-    with open(conf, "w") as f:
-        f.write(f"[general]\ncluster-file = {cf_path}\nrestart-delay = 0.5\n"
-                f"{device}logdir = {tmp}\n" + "".join(
-                    f"[fdbserver.{p}]\nlisten = 127.0.0.1:{p}\n"
-                    "spec = min_workers=3,replication=2\n" for p in ports))
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-               OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    with open(os.path.join(tmp, "monitor.err"), "wb") as ef:
-        mon = subprocess.Popen([sys.executable, "-m", f"{package}.monitor",
-                                "-C", conf], cwd=REPO, env=env,
-                               stdout=subprocess.DEVNULL, stderr=ef)
+    mon, ports, cf_path, env, t0 = start_deployment(package, tmp, device)
     out: dict = {"package": package, "shape": "deployment",
                  "stop_leader": stop_leader, "hold_leader": hold_leader,
                  "stop_roles": stop_roles, "attempts": []}
@@ -297,12 +332,8 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
     trace.set_trace_log(trace.TraceLog(path=os.path.join(tmp,
                                                          "client.jsonl")))
     try:
-        while "Committed" not in cli_exec(package, cf_path, "set first 1",
-                                          env):
-            if time.perf_counter() - t0 > 300 or mon.poll() is not None:
-                raise RuntimeError("no first commit through the CLI")
-            time.sleep(0.5)
-        out["first_commit_s"] = round(time.perf_counter() - t0, 3)
+        out["first_commit_s"] = first_commit(package, cf_path, env, mon,
+                                             t0)
         got = cli_exec(package, cf_path, "; ".join(
             f"set deploy/{i:02d} v{i}" for i in range(16)), env)
         assert got.split() == ["Committed"] * 16, got
@@ -431,11 +462,106 @@ def run_deployment(package: str, tmp: str, stop_leader: bool = False,
     return out
 
 
+def run_rolling(package: str, tmp: str, order: str = "coordinators",
+                device: str = "cpu") -> dict:
+    """A rolling restart of phase 25's deployment (``start_deployment``)
+    for either package (``chip_smoke.rolling_kills``): with the monitor
+    left running, the
+    coordinators' servers SIGKILLed in turn, 0, 1 and then 2, each
+    restarted at once, empty; with ``order`` "all" the worker-only
+    server first.  After the first commit and 16 writes through the
+    CLI, one long-lived client commits after each kill (``kills``: each
+    kill's victim, attempts [start s after the kill, outcome, s],
+    timed-out attempts' records, ``failover_s``); after the last kill a
+    fresh CLI reads back every acknowledged write once each victim has
+    restarted (``read_back``, ``chip_smoke.read_back_of``'s record;
+    ``chip_smoke.read_back_error`` is its gate); ``recoveries``: the
+    epoch of each ``RecoveryComplete``, the foundings and the shards left
+    without a replica in the server logs (``chip_smoke.recovery_record``);
+    ``stopped``: what the monitor said of each server it stopped on
+    SIGTERM."""
+    import chip_smoke as cs
+    imp = lambda m: importlib.import_module(f"{package}.{m}")  # noqa: E731
+    trace = imp("runtime.trace")
+    mon, ports, cf_path, env, t0 = start_deployment(package, tmp, device)
+    out: dict = {"package": package, "shape": "rolling", "order": order}
+    prev = trace.get_trace_log()
+    trace.set_trace_log(trace.TraceLog(path=os.path.join(tmp,
+                                                         "client.jsonl")))
+    try:
+        out["first_commit_s"] = first_commit(package, cf_path, env, mon,
+                                             t0)
+        writes = {f"rolling/w{i:02d}": f"v{i}" for i in range(16)}
+        got = cli_exec(package, cf_path, "; ".join(
+            f"set {k} {v}" for k, v in writes.items()), env)
+        assert got.split() == ["Committed"] * 16, got
+        out["acked"] = {"first": "1", **writes}
+        victims = ([ports[3]] if order == "all" else []) + ports[:3]
+
+        async def rolling():
+            cli = await imp("cli").open_cli(
+                cf_path, imp("runtime.knobs").Knobs(), timeout=60)
+            waits = cs.OutstandingRequests(
+                cli.view.transport, lambda: cli.view,
+                imp("rpc.stubs").ROLE_METHODS,
+                imp("rpc.transport").WLTOKEN_COORDINATOR)
+            try:
+                await cs.rolling_kills(cli, waits, victims, ports,
+                                       lambda p: started(tmp)[p][-1], out,
+                                       "rolling", cs.ROLLING_BUDGET_S)
+            finally:
+                await cli.view.transport.close()
+        asyncio.run(asyncio.wait_for(rolling(), 600))
+        for k in out["kills"]:
+            k["failover_s"] = k["failover_s"] and round(k["failover_s"], 3)
+        # every victim restarted before the read-back and the SIGTERM (a
+        # server still starting would die of the signal)
+        for p in victims:
+            t = time.perf_counter()
+            while len(started(tmp).get(p, [])) < 2 or open(os.path.join(
+                    tmp, f"fdbserver.{p}.log"), errors="replace").read(
+                    ).count('"ServerStarted"') < 2:
+                if time.perf_counter() - t > 120:
+                    raise RuntimeError(f"server {p} did not restart")
+                time.sleep(0.2)
+        try:
+            got = cli_exec(package, cf_path, "; ".join(
+                f"get {k}" for k in sorted(out["acked"])), env,
+                cs.ROLLING_READ_S)
+        except subprocess.TimeoutExpired:
+            got = None
+        out["read_back"] = cs.read_back_of(got, out["acked"])
+    finally:
+        trace.get_trace_log().close()
+        trace.set_trace_log(prev)
+        mon.send_signal(signal.SIGTERM)
+        try:
+            mon.wait(60)
+        except subprocess.TimeoutExpired:
+            mon.kill()
+            mon.wait()
+        out["recoveries"] = cs.recovery_record(tmp, ports)
+        with open(os.path.join(tmp, "monitor.err"), errors="replace") as f:
+            out["stopped"] = [ln.split("] ", 1)[-1].strip() for ln in f
+                              if "stopped rc=" in ln]
+    out["monitor_rc"] = mon.returncode
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     sys.path.insert(0, REPO)
+    device = argv[argv.index("--device") + 1] if "--device" in argv \
+        else "cpu"
     with tempfile.TemporaryDirectory() as tmp:
-        if "--deployment" in argv:
+        if "--keep" in argv:
+            tmp = argv[argv.index("--keep") + 1]
+            os.makedirs(tmp, exist_ok=True)
+        if "--rolling" in argv:
+            i = argv.index("--rolling") + 1
+            order = "all" if argv[i:i + 1] == ["all"] else "coordinators"
+            r = run_rolling(argv[0], tmp, order, device)
+        elif "--deployment" in argv:
             # --stop-roles needs the roles off the leader's server: a new
             # deployment (new ports) until they are, at most 8
             for i in range(8):
@@ -444,7 +570,7 @@ def main(argv=None) -> int:
                     r = run_deployment(argv[0], os.path.join(tmp, str(i)),
                                        "--stop-leader" in argv,
                                        "--hold-leader" in argv,
-                                       "--stop-roles" in argv)
+                                       "--stop-roles" in argv, device)
                 except NoTarget:
                     continue
                 r["deployments"] = i + 1

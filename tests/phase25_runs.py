@@ -4,13 +4,16 @@ leader's SIGKILL with the monitor paused, the C ABI) run on its own,
 once for each mode named, each run's failover attempts printed.
 
     python tests/phase25_runs.py majority,gathered,stop,... [DEVICE] [--hangs N]
+        [--keep DIR]
 
 A mode sets the client's cluster-state refresh for the run:
 ``majority`` is the port as it is (``core/cluster_client.py``
 returns once a majority of coordinators has answered), ``gathered``
 waits for every coordinator, as the JAX package does.  ``stop`` runs
 phase 32 instead, the port as it is: a fresh deployment whose elected
-leader's server is SIGSTOPped.  ``DEVICE`` is
+leader's server is SIGSTOPped; ``rolling`` runs phase 33: a fresh
+deployment whose coordinators' servers are SIGKILLed in turn, the
+monitor running (its attempts are each kill's, in order).  ``DEVICE`` is
 the servers' ``--device`` (``cuda``, the default, or ``cpu``).  One JSON
 line a run: the attempts ([start s after the kill, outcome, s]), the
 seconds from the kill to the first commit, what each timed-out attempt
@@ -19,6 +22,8 @@ when the killed process and its sockets went (``kill_watch``), the
 connections the transports cut after their peer's silence
 (``connection_timeouts``), and phase 25's line.  With ``--hangs N``
 the loop ends after the Nth run whose first attempt did not commit.
+With ``--keep DIR`` each ``rolling`` run's files, its server logs
+among them, stay in a directory of their own in DIR.
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ def main(argv=None) -> int:
         i = argv.index("--hangs")
         hangs = int(argv[i + 1])
         del argv[i:i + 2]
+    keep = None
+    if "--keep" in argv:
+        i = argv.index("--keep")
+        keep = argv[i + 1]
+        os.makedirs(keep, exist_ok=True)
+        del argv[i:i + 2]
     modes = argv[0].split(",")
     dev = argv[1] if len(argv) > 1 else "cuda"
     card = "cpu"
@@ -63,6 +74,14 @@ def main(argv=None) -> int:
             if mode == "stop":
                 r = cs.stopped_leader_phase(dev)
                 line = cs.check_stopped_leader_phase(r, card)
+            elif mode == "rolling":
+                r = cs.rolling_phase(dev, keep)
+                r.update(failover_attempts=[k["attempts"]
+                                            for k in r["kills"]],
+                         failover_s=[k["failover_s"] for k in r["kills"]],
+                         timed_out=[k["timed_out"] for k in r["kills"]],
+                         connection_timeouts=[])
+                line = cs.check_rolling_phase(r, card)
             else:
                 r = cs.deployment_phase(dev)
                 line = cs.check_deployment_phase(r, card)
@@ -78,7 +97,8 @@ def main(argv=None) -> int:
         rec["seconds"] = time.perf_counter() - t
         rec["card"] = card
         print(json.dumps(rec), flush=True)
-        hung += not rec["ok"] or rec["attempts"][0][1] != "committed"
+        hung += not rec["ok"] or rec["attempts"][0][1] != "committed" \
+            if mode != "rolling" else not rec["ok"]
         if hangs is not None and hung >= hangs:
             break
     return 0

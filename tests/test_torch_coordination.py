@@ -168,6 +168,121 @@ def test_register_and_quorum_match_reference(name):
 
 
 # --------------------------------------------------------------------------
+# a read of the coordinated state after coordinators restart empty
+# (ROADMAP C6): a coordinator that restarted empty answers at once with
+# no state, and must not outvote one that still holds the latest write
+
+
+class Slow:
+    """A coordinator whose every call first waits ``delay`` seconds;
+    with ``fail`` it then raises instead, and with ``delay`` None it
+    never answers."""
+
+    def __init__(self, co, delay: float | None, fail: bool = False):
+        self._co, self._delay, self._fail = co, delay, fail
+
+    def __getattr__(self, name):
+        m = getattr(self._co, name)
+
+        async def call(*a):
+            if self._delay is None:
+                await asyncio.get_running_loop().create_future()
+            await asyncio.sleep(self._delay)
+            if self._fail:
+                raise ConnectionResetError("coordinator lost")
+            return await m(*a)
+        return call
+
+
+def amnesia(case: str):
+    """A ``CoordinatedState`` writes epoch 3 through three coordinators;
+    then, by ``case``: ``fork``, coordinators 0 and 1 restart empty and
+    coordinator 2, which holds the write, answers 0.2 s late;
+    ``holder_lost``, the same but coordinator 2's calls fail; ``silent``,
+    coordinator 2 never answers and 0 and 1 hold the write.  A second
+    ``CoordinatedState`` then reads: (the value it read, the seconds the
+    read took, the per-call bound)."""
+    async def scenario(P):
+        C = P.coordination
+        k = P.Knobs()
+        coords = [C.Coordinator(k) for _ in range(3)]
+        writer = C.CoordinatedState(coords, my_id=1, knobs=k)
+        await writer.read_modify_write(lambda _: {"epoch": 3})
+        if case == "silent":
+            coords[2] = Slow(coords[2], None)
+        else:
+            coords = [C.Coordinator(k), C.Coordinator(k),
+                      Slow(coords[2], 0.2, fail=case == "holder_lost")]
+        loop = asyncio.get_running_loop()
+        t = loop.time()
+        _, value = await C.CoordinatedState(coords, my_id=2, knobs=k).read()
+        return value, loop.time() - t, k.FAILURE_TIMEOUT * 2
+    return scenario
+
+
+@pytest.mark.parametrize("case", ["fork", "holder_lost", "silent"])
+def test_read_after_coordinators_restart_empty(case):
+    """``fork``: with the port's rounds returning early, two empty
+    replies used to settle the read before the state holder answered,
+    and the read returned no state: a controller then founded a second,
+    empty database.  The port now waits for it, and reads what the
+    reference reads.  ``holder_lost``: with every coordinator that held
+    the write lost, both packages read no state (ROADMAP C2).
+    ``silent``: two coordinators that hold the write settle the read
+    before the silent third's bound (ROADMAP C4), where the reference
+    waits the bound out."""
+    ref, port = both(amnesia(case))
+    assert port[0] == ref[0]
+    if case == "fork":
+        assert port[0] == {"epoch": 3}
+        assert port[1] == pytest.approx(0.2) and port[1] < port[2]
+    if case == "holder_lost":
+        assert port[0] is None
+    if case == "silent":
+        assert port[0] == {"epoch": 3}
+        assert port[1] < port[2] <= ref[1]
+
+
+async def restarted_writer(P):
+    """A ``CoordinatedState`` writes epoch 3; coordinator 2 restarts
+    empty, and a new one of the same id (a controller whose server
+    fdbmonitor restarted: it numbers its generations from 1 again) reads
+    and writes epoch 4.  Returns (what it read, whether its write was
+    refused, each coordinator's accepted generation and value)."""
+    C = P.coordination
+    k = P.Knobs()
+    coords = [C.Coordinator(k) for _ in range(3)]
+    await C.CoordinatedState(coords, my_id=7, knobs=k).read_modify_write(
+        lambda _: {"epoch": 3})
+    coords[2] = C.Coordinator(k)
+    again = C.CoordinatedState(coords, my_id=7, knobs=k)
+    _, seen = await again.read()
+    try:
+        await again.write({"epoch": 4})
+        refused = False
+    except C.NotLatestGeneration:
+        refused = True
+    return seen, refused, [(c.write_gen, c.value) for c in coords]
+
+
+def test_restarted_writer_leaves_no_uncommitted_state():
+    """The cause of a long-lived client stranded after a rolling restart
+    (ROADMAP C2, C6): the reference's new writer reads at generation
+    (1, 7), which the coordinators that kept their state already hold,
+    so its write is refused there and lands only at the empty one, which
+    then hands clients an epoch 4 that was never committed.  The port's
+    read goes once more past every generation it saw, and its write
+    lands everywhere; gathered, it is the reference's."""
+    ref, port, gathered_port = held(lambda P: restarted_writer(P))
+    assert gathered_port == ref
+    assert ref[0] == {"epoch": 3} and ref[1]
+    assert [v for _, v in ref[2]] == [{"epoch": 3}] * 2 + [{"epoch": 4}]
+    assert port[0] == {"epoch": 3} and not port[1]
+    assert [v for _, v in port[2]] == [{"epoch": 4}] * 3
+    assert len({g for g, _ in port[2]}) == 1
+
+
+# --------------------------------------------------------------------------
 # leader election
 
 
